@@ -1,0 +1,821 @@
+"""Scene compilation: a Moby-style scene -> static fixed-shape tensors
+(counterpart of ``moby_tpu/core/scene.py``).
+
+The scene is compiled host-side (numpy) into a frozen :class:`Scene` of
+fixed-shape tensors shared by every scenario of a batch:
+
+* rigid bodies -> "pose slots" (free body i = slot i),
+* generalized coordinates -> one gc vector, 6 per free body ([v; ω], the
+  reference's eSpatial layout),
+* collision geometries -> typed parameter table with local poses folded in,
+* candidate pairs -> a static pair table grouped by narrow-phase kind,
+* contact slots -> fixed-K layout with per-slot static contact parameters,
+* friction-cone rows -> a static (contact, cos θ, sin θ) table mirroring
+  `setup_QP`'s NK/2 half-plane rows (src/ImpactConstraintHandlerQP.cpp:456-479).
+
+:class:`State` carries the batch: every field has a leading ``B``.
+
+This slice of the port covers free bodies with SPHERE, PLANE and BOX
+geometry. Articulated bodies, pair pooling, bilateral constraints, compliant
+contact, heightmaps, meshes, the other primitives and plugin kernels are
+accepted by `SceneBuilder`'s methods and refused by ``compile()`` with a
+``NotImplementedError`` that names the feature. The mesh, heightmap and
+convex-hull tables of the JAX ``Scene`` (``geom_faces``, ``hm_heights``,
+``geom_hull_normals`` ...) have no consumer yet and are not carried.
+
+Index tables are int64 (PyTorch's indexing type) where the JAX package uses
+int32; values are equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import config as cfg
+
+# geometry type codes
+SPHERE = 0
+PLANE = 1
+BOX = 2
+CYLINDER = 3
+CONE = 4
+TORUS = 5
+HEIGHTMAP = 6
+POLYHEDRON = 7
+NONE = 8
+TRIMESH = 9
+
+_GEOM_NAMES = {
+    SPHERE: "SPHERE", PLANE: "PLANE", BOX: "BOX", CYLINDER: "CYLINDER",
+    CONE: "CONE", TORUS: "TORUS", HEIGHTMAP: "HEIGHTMAP",
+    POLYHEDRON: "POLYHEDRON", NONE: "NONE", TRIMESH: "TRIMESH",
+}
+_PORTED_GEOMS = frozenset({SPHERE, PLANE, BOX})
+
+# narrow-phase kind codes (mirrors CCD::find_contacts dispatch,
+# include/Moby/CCD.inl:3-81); same values as the JAX package
+K_SPHERE_SPHERE = 0   # A=sphere, B=sphere, 1 slot
+K_SPHERE_PLANE = 1    # A=sphere, B=plane, 1 slot
+K_BOX_SPHERE = 2      # A=box, B=sphere, 1 slot
+K_PLANE_GENERIC = 3   # A=plane, B=vertex-carrying solid, vmax slots
+K_BOX_BOX = 6         # A=box, B=box: vertex-vs-box both ways, 2*vmax slots
+
+_SKIP = "skip"
+
+# vertex-driven contact-slot cap: pair kinds that emit one slot per vertex cap
+# at the VSLOT_CAP deepest vertices (boxes have 8, below the cap)
+VSLOT_CAP = 16
+
+
+def _kind_nslots(kind: int, vmax: int) -> int:
+    if kind in (K_SPHERE_SPHERE, K_SPHERE_PLANE, K_BOX_SPHERE):
+        return 1
+    if kind == K_PLANE_GENERIC:
+        return min(vmax, VSLOT_CAP)
+    if kind == K_BOX_BOX:
+        return 2 * min(vmax, VSLOT_CAP)
+    raise ValueError(f"unknown kind {kind}")
+
+
+def _as_tensor(x, device, fdtype):
+    """numpy array -> tensor: floats to `fdtype`, ints to int64, bools kept."""
+    a = np.asarray(x)
+    if a.dtype == bool:
+        return torch.tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a, dtype=torch.int64, device=device)
+    return torch.tensor(a, dtype=fdtype, device=device)
+
+
+def cached(scene, key, make):
+    """A derived static table of `scene` (index tensors, constant Jacobians),
+    built once by `make()` and kept beside the host tables."""
+    store = scene.host
+    if key not in store:
+        store[key] = make()
+    return store[key]
+
+
+class _TensorRecord:
+    """`.replace(...)` and `.to(device)` for frozen dataclasses of tensors."""
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device):
+        dev = cfg.resolve_device(device)
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(dev)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        })
+
+
+# array fields of Scene, in the JAX package's order
+_SCENE_ARRAYS = (
+    "mass", "inv_mass", "inertia", "inv_inertia", "enabled",
+    "slot_enabled", "slot_rmax",
+    "geom_slot", "geom_pos", "geom_quat", "geom_params", "geom_rmax",
+    "pair_g1", "pair_g2", "pair_kind", "pair_slot0", "pair_nslots",
+    "slot_pair", "slot_s1", "slot_s2", "slot_eps", "slot_mu_c", "slot_mu_v",
+    "slot_compliance", "slot_compliant", "slot_truecone", "slot_kp", "slot_kv",
+    "lim_gc_col", "lim_q_idx", "lim_upper", "lim_value", "lim_eps",
+    "fr_con", "fr_cos", "fr_sin",
+    "geom_verts", "geom_nverts",
+    "gravity", "contact_dist_thresh", "min_step_size",
+    "dissipation_lambda", "drag_lin", "drag_ang",
+)
+_SCENE_STATICS = (
+    "nb", "ng", "n_pose_slots", "ngc", "nq_art", "nv_art", "n_pairs",
+    "n_contacts", "n_friction_rows", "n_limits", "vmax",
+    "use_noslip", "use_nqp", "mixed_models", "has_compliant",
+    "stab_max_iters", "legacy_velocity_first", "has_dyn_slots",
+)
+
+
+@dataclass(frozen=True, eq=False)
+class Scene(_TensorRecord):
+    """Static compiled scene, shared by every scenario of a batch."""
+
+    # ---- free rigid bodies (nb,)
+    mass: torch.Tensor
+    inv_mass: torch.Tensor        # 0 for disabled
+    inertia: torch.Tensor         # (nb, 3, 3) body frame
+    inv_inertia: torch.Tensor
+    enabled: torch.Tensor         # (nb,) bool
+    # ---- pose slots (ns = nb)
+    slot_enabled: torch.Tensor    # (ns,) bool
+    slot_rmax: torch.Tensor       # (ns,) farthest-point distance (CA bound)
+    # ---- geometries (ng,)
+    geom_slot: torch.Tensor       # (ng,) pose slot
+    geom_pos: torch.Tensor        # (ng, 3) local position in slot frame
+    geom_quat: torch.Tensor       # (ng, 4) local orientation (xyzw)
+    geom_params: torch.Tensor     # (ng, 4)
+    geom_rmax: torch.Tensor       # (ng,) shape-only bounding radius
+    # ---- candidate pairs (np_,)
+    pair_g1: torch.Tensor
+    pair_g2: torch.Tensor
+    pair_kind: torch.Tensor
+    pair_slot0: torch.Tensor
+    pair_nslots: torch.Tensor
+    # ---- contact slots (K,)
+    slot_pair: torch.Tensor       # (K,) owning pair
+    slot_s1: torch.Tensor         # (K,) pose slot of geom1
+    slot_s2: torch.Tensor         # (K,) pose slot of geom2
+    slot_eps: torch.Tensor
+    slot_mu_c: torch.Tensor
+    slot_mu_v: torch.Tensor
+    slot_compliance: torch.Tensor
+    slot_compliant: torch.Tensor  # (K,) bool
+    slot_truecone: torch.Tensor   # (K,) bool: NK = inf -> true friction cone
+    slot_kp: torch.Tensor
+    slot_kv: torch.Tensor
+    # ---- joint-limit slots (NL,) — empty without articulated bodies
+    lim_gc_col: torch.Tensor
+    lim_q_idx: torch.Tensor
+    lim_upper: torch.Tensor
+    lim_value: torch.Tensor
+    lim_eps: torch.Tensor
+    # ---- friction-cone rows (NF,)
+    fr_con: torch.Tensor
+    fr_cos: torch.Tensor
+    fr_sin: torch.Tensor
+    # ---- vertex table (plane_generic contacts / CA bounds)
+    geom_verts: torch.Tensor      # (ng, VMAX, 3)
+    geom_nverts: torch.Tensor     # (ng,)
+    # ---- forces / solver config
+    gravity: torch.Tensor
+    contact_dist_thresh: torch.Tensor
+    min_step_size: torch.Tensor
+    dissipation_lambda: torch.Tensor  # (nb,)
+    drag_lin: torch.Tensor
+    drag_ang: torch.Tensor
+    # ---- static metadata
+    nb: int = 0
+    ng: int = 0
+    n_pose_slots: int = 0
+    ngc: int = 0
+    nq_art: int = 0
+    nv_art: int = 0
+    n_pairs: int = 0
+    n_contacts: int = 0
+    n_friction_rows: int = 0
+    n_limits: int = 0
+    vmax: int = 0
+    # all contacts have mu >= 100 -> the no-slip MLCP model
+    use_noslip: bool = False
+    # any contact requests the true friction cone (NK = UINF) -> NQP model
+    use_nqp: bool = False
+    # contact slots disagree on the impact model -> per-island routing
+    mixed_models: bool = False
+    has_compliant: bool = False
+    stab_max_iters: int = 4
+    legacy_velocity_first: bool = False
+    has_dyn_slots: bool = False
+    arts: Any = ()
+    bilaterals: Any = ()
+    # (kind, nslots) -> {"kind", "pairs", "slots", "nslots"}, numpy indices
+    kind_groups: Any = None
+    body_names: Any = None
+    # host-side numpy copies of the array fields: static decisions (which
+    # bodies are live, whether every restitution is zero, index tables) read
+    # these, so they cost no device synchronisation
+    host: Any = field(default=None, repr=False)
+
+    @property
+    def n_vars(self) -> int:
+        """QP variable layout [cn cs ct ncs nct l]
+        (UnilateralConstraintProblemData.h:187-205)."""
+        return 5 * self.n_contacts + self.n_limits
+
+    @property
+    def n_ineq(self) -> int:
+        return self.n_contacts + self.n_limits + self.n_friction_rows
+
+    @property
+    def n_lcp(self) -> int:
+        return self.n_vars + self.n_ineq
+
+    @property
+    def device(self) -> torch.device:
+        return self.mass.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.mass.dtype
+
+
+@dataclass(frozen=True, eq=False)
+class State(_TensorRecord):
+    """Dynamic simulation state of a batch of B scenarios."""
+
+    pos: torch.Tensor      # (B, nb, 3)
+    quat: torch.Tensor     # (B, nb, 4)
+    vel: torch.Tensor      # (B, nb, 3)
+    omega: torch.Tensor    # (B, nb, 3)
+    q_art: torch.Tensor    # (B, nq_art)
+    qd_art: torch.Tensor   # (B, nv_art)
+    time: torch.Tensor     # (B,)
+    zlast: torch.Tensor    # (B, n_lcp)
+    zlast_active: torch.Tensor   # (B, K) bool
+    min_dist_obs: torch.Tensor   # (B, n_pairs)
+    # solver-effort observability (the reference's LCP pivot counters,
+    # include/Moby/LCP.h:30), accumulated over the mini-steps of the last
+    # `step` call; (B,) int32
+    solver_pivots: Optional[torch.Tensor] = None
+    solver_fallbacks: Optional[torch.Tensor] = None
+
+    @property
+    def batch(self) -> int:
+        return self.pos.shape[0]
+
+    def expand(self, B: int) -> "State":
+        """A batch of B copies of a single-scenario state."""
+        if self.batch != 1:
+            raise ValueError("expand() needs a state of batch 1")
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).expand(
+                (B,) + getattr(self, f.name).shape[1:]).clone()
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None
+        })
+
+
+@dataclass
+class BodyDef:
+    name: str
+    mass: float = 0.0
+    inertia: np.ndarray = None
+    pos: np.ndarray = None
+    quat: np.ndarray = None
+    lin_vel: np.ndarray = None
+    ang_vel: np.ndarray = None
+    enabled: bool = True
+    dissipation: float = 1.0
+    compliant: bool = False
+
+
+@dataclass
+class GeomDef:
+    body: str
+    gtype: int
+    params: np.ndarray
+    pos: np.ndarray = None
+    quat: np.ndarray = None
+    verts: np.ndarray = None
+    rmax: float = None           # override for the CA motion-bound radius
+    heights: np.ndarray = None
+    faces: np.ndarray = None
+
+
+@dataclass
+class ContactParams:
+    """Reference ContactParameters defaults (ContactParameters.cpp:23-26)."""
+
+    epsilon: float = 0.0
+    mu_coulomb: float = 0.0
+    mu_viscous: float = 0.0
+    nk: int = 4            # friction-cone edges; <= 0 means the true cone
+    compliance: float = 0.0
+    penalty_kp: float = 0.0
+    penalty_kv: float = 0.0
+    # cap on this pair's contact-manifold slots (0 = kernel default)
+    max_slots: int = 0
+
+
+def box_vertices(hx, hy, hz) -> np.ndarray:
+    return np.array(
+        [
+            [sx * hx, sy * hy, sz * hz]
+            for sx in (-1, 1)
+            for sy in (-1, 1)
+            for sz in (-1, 1)
+        ]
+    )
+
+
+def sphere_inertia(mass, r):
+    return np.eye(3) * (2.0 / 5.0 * mass * r * r)
+
+
+def box_inertia(mass, hx, hy, hz):
+    lx, ly, lz = 2 * hx, 2 * hy, 2 * hz
+    return np.diag(
+        [
+            mass / 12.0 * (ly * ly + lz * lz),
+            mass / 12.0 * (lx * lx + lz * lz),
+            mass / 12.0 * (lx * lx + ly * ly),
+        ]
+    )
+
+
+def _check_ported(statics: dict, kind_groups: dict):
+    """Refuse what this slice does not run, naming the feature."""
+    if statics.get("arts"):
+        raise NotImplementedError("articulated bodies are not ported yet")
+    if statics.get("bilaterals"):
+        raise NotImplementedError(
+            "bilateral (gear/point/planar) constraints are not ported yet")
+    if statics.get("has_dyn_slots"):
+        raise NotImplementedError("pair pooling is not ported yet")
+    if statics.get("has_compliant"):
+        raise NotImplementedError("compliant contact is not ported yet")
+    if statics.get("n_limits", 0):
+        raise NotImplementedError("joint limits are not ported yet")
+    for key, grp in (kind_groups or {}).items():
+        kind = int(grp["kind"])
+        if "kernel" in grp or kind < 0:
+            raise NotImplementedError("plugin contact kernels are not ported yet")
+        if grp.get("pooled"):
+            raise NotImplementedError("pair pooling is not ported yet")
+        if kind not in (K_SPHERE_SPHERE, K_SPHERE_PLANE, K_BOX_SPHERE,
+                        K_PLANE_GENERIC, K_BOX_BOX):
+            raise NotImplementedError(
+                f"narrow-phase kind {kind} is not ported yet (ported: "
+                "sphere-sphere, sphere-plane, box-sphere, plane-box, box-box)")
+
+
+def scene_from_arrays(fields: dict, device, dtype=None) -> Scene:
+    """Build a :class:`Scene` from a dict of numpy arrays and Python statics
+    — the fields of a compiled scene of either package, arrays already
+    converted with ``np.asarray``. Entries this slice has no consumer for
+    (mesh, heightmap and hull tables) are ignored; features it does not run
+    raise ``NotImplementedError``."""
+    dev = cfg.resolve_device(device)
+    fdtype = cfg.torch_dtype(dtype) if dtype is not None else cfg.default_dtype(dev)
+    statics = {k: fields[k] for k in _SCENE_STATICS if k in fields}
+    statics["arts"] = tuple(fields.get("arts") or ())
+    statics["bilaterals"] = tuple(fields.get("bilaterals") or ())
+    kind_groups = {}
+    for key, grp in (fields.get("kind_groups") or {}).items():
+        g = dict(grp)
+        g["pairs"] = np.asarray(g["pairs"], np.int64)
+        g["slots"] = np.asarray(g["slots"], np.int64)
+        kind_groups[(int(key[0]), int(key[1]))] = g
+    _check_ported(statics, kind_groups)
+    np_dt = cfg.numpy_dtype(fdtype)
+    host = {}
+    for k in _SCENE_ARRAYS:
+        a = np.asarray(fields[k])
+        if np.issubdtype(a.dtype, np.floating):
+            a = a.astype(np_dt)
+        elif np.issubdtype(a.dtype, np.integer):
+            a = a.astype(np.int64)
+        host[k] = a
+    arrays = {k: _as_tensor(v, dev, fdtype) for k, v in host.items()}
+    body_names = fields.get("body_names")
+    return Scene(
+        **arrays, **statics, kind_groups=kind_groups,
+        body_names=None if body_names is None else tuple(body_names),
+        host=host,
+    )
+
+
+_STATE_ARRAYS = (
+    "pos", "quat", "vel", "omega", "q_art", "qd_art", "time", "zlast",
+    "zlast_active", "min_dist_obs", "solver_pivots", "solver_fallbacks",
+)
+
+
+def state_from_arrays(fields: dict, device, dtype=None) -> State:
+    """Build a :class:`State` from a dict of numpy arrays. A single-scenario
+    state (``pos`` of shape (nb, 3)) gets a leading batch dimension of 1;
+    a batched one ((B, nb, 3)) is taken as it is."""
+    dev = cfg.resolve_device(device)
+    fdtype = cfg.torch_dtype(dtype) if dtype is not None else cfg.default_dtype(dev)
+    batched = np.asarray(fields["pos"]).ndim == 3
+    out = {}
+    for k in _STATE_ARRAYS:
+        v = fields.get(k)
+        if v is None:
+            out[k] = None
+            continue
+        a = np.asarray(v)
+        if not batched:
+            a = a[None]
+        if k in ("solver_pivots", "solver_fallbacks"):
+            out[k] = torch.as_tensor(a.astype(np.int32), device=dev)
+        else:
+            out[k] = _as_tensor(a, dev, fdtype)
+    return State(**out)
+
+
+class SceneBuilder:
+    """Host-side scene assembly (XMLReader + Simulator setup equivalent)."""
+
+    def __init__(self, dtype=None):
+        self.dtype = dtype          # None: chosen from the device at compile
+        self.bodies: list[BodyDef] = []
+        self.geoms: list[GeomDef] = []
+        self.contact_params: dict[tuple[str, str], ContactParams] = {}
+        self.gravity = np.zeros(3)
+        self.contact_dist_thresh = 1e-6
+        self.min_step_size = cfg.NEAR_ZERO_F64
+        self.stab_max_iters = 4
+        self.legacy_velocity_first = False
+        self.disabled_pairs: set[tuple[str, str]] = set()
+        self.drag_lin: dict = {}
+        self.drag_ang: dict = {}
+        # features accepted above but refused by compile(), by name
+        self._unported: list[str] = []
+
+    # ---------------- not ported yet: recorded, refused at compile ----------
+    def add_articulated(self, name, model, q0=None, qd0=None, link_names=None):
+        self._unported.append("articulated bodies")
+
+    def add_gear_constraint(self, ab_name, link_a, link_b, ratio):
+        self._unported.append("bilateral gear constraints")
+
+    def add_point_constraint(self, body1, anchor1, body2, anchor2):
+        self._unported.append("bilateral point constraints")
+
+    def add_planar_constraint(self, outboard, inboard, normal):
+        self._unported.append("bilateral planar constraints")
+
+    def add_custom_pair(self, body1, body2, kernel, nslots):
+        self._unported.append("plugin contact kernels")
+
+    def set_pair_pool(self, gtype_a, gtype_b, max_pairs: int):
+        self._unported.append("pair pooling")
+
+    # ---------------- bodies / geoms ----------------
+    def add_body(self, name, **kw) -> BodyDef:
+        b = BodyDef(name=name, **kw)
+        if b.inertia is None:
+            b.inertia = np.eye(3)
+        if b.pos is None:
+            b.pos = np.zeros(3)
+        if b.quat is None:
+            b.quat = np.array([0.0, 0.0, 0.0, 1.0])
+        if b.lin_vel is None:
+            b.lin_vel = np.zeros(3)
+        if b.ang_vel is None:
+            b.ang_vel = np.zeros(3)
+        self.bodies.append(b)
+        return b
+
+    def add_geom(self, body, gtype, params, pos=None, quat=None, verts=None,
+                 rmax=None, heights=None, faces=None):
+        g = GeomDef(
+            body=body,
+            gtype=gtype,
+            params=np.asarray(params, dtype=np.float64),
+            pos=np.zeros(3) if pos is None else np.asarray(pos, np.float64),
+            quat=np.array([0, 0, 0, 1.0]) if quat is None else np.asarray(quat, np.float64),
+            verts=verts,
+            rmax=rmax,
+            heights=heights,
+            faces=None if faces is None else np.asarray(faces, np.int32),
+        )
+        if g.gtype == BOX and g.verts is None:
+            g.verts = box_vertices(*g.params[:3])
+        self.geoms.append(g)
+        return g
+
+    def set_contact_params(self, name1, name2, cp: ContactParams):
+        self.contact_params[tuple(sorted((name1, name2)))] = cp
+
+    def set_gravity(self, g):
+        self.gravity = np.asarray(g, np.float64)
+
+    # ---------------- compile ----------------
+    def _pair_kind(self, ta, tb):
+        if ta == SPHERE and tb == SPHERE:
+            return K_SPHERE_SPHERE, False
+        if ta == SPHERE and tb == PLANE:
+            return K_SPHERE_PLANE, False
+        if ta == PLANE and tb == SPHERE:
+            return K_SPHERE_PLANE, True
+        if ta == SPHERE and tb == BOX:
+            return K_BOX_SPHERE, True
+        if ta == BOX and tb == SPHERE:
+            return K_BOX_SPHERE, False
+        if ta == BOX and tb == PLANE:
+            return K_PLANE_GENERIC, True
+        if ta == PLANE and tb == BOX:
+            return K_PLANE_GENERIC, False
+        if ta == BOX and tb == BOX:
+            return K_BOX_BOX, False
+        if ta == PLANE and tb == PLANE:
+            # two fixed environment fields: nothing to do
+            return _SKIP, False
+        return None, False
+
+    def compile(self, device="cuda", dtype=None):
+        """Compile to (Scene, State of batch 1) on `device`. The dtype is the
+        `SceneBuilder`'s own, else `dtype`, else the device's default (float32 on the
+        card, float64 on the CPU)."""
+        dev = cfg.resolve_device(device)
+        fdtype = cfg.torch_dtype(
+            dtype if dtype is not None
+            else self.dtype if self.dtype is not None
+            else cfg.default_dtype(dev))
+        dt = cfg.numpy_dtype(fdtype)
+
+        if self._unported:
+            raise NotImplementedError(
+                f"{self._unported[0]} are not ported yet")
+        for b in self.bodies:
+            if b.compliant:
+                raise NotImplementedError(
+                    f"compliant contact (body '{b.name}') is not ported yet")
+        for g in self.geoms:
+            if g.gtype not in _PORTED_GEOMS:
+                raise NotImplementedError(
+                    f"{_GEOM_NAMES.get(g.gtype, g.gtype)} geometry (body "
+                    f"'{g.body}') is not ported yet: SPHERE, PLANE and BOX are")
+
+        nb = len(self.bodies)
+        slot_names = {b.name: i for i, b in enumerate(self.bodies)}
+        ns = nb
+        ngc = 6 * nb
+
+        mass = np.array([b.mass for b in self.bodies], dt) if nb else np.zeros(0, dt)
+        inertia = (
+            np.stack([b.inertia for b in self.bodies]).astype(dt)
+            if nb
+            else np.zeros((0, 3, 3), dt)
+        )
+        enabled = np.array([b.enabled for b in self.bodies], bool)
+        inv_mass = np.where(
+            enabled & (mass > 0), 1.0 / np.where(mass > 0, mass, 1.0), 0.0
+        ).astype(dt)
+        inv_inertia = np.zeros_like(inertia)
+        for i, b in enumerate(self.bodies):
+            if enabled[i] and b.mass > 0:
+                inv_inertia[i] = np.linalg.inv(b.inertia)
+        slot_enabled = enabled.copy()
+
+        all_geoms = list(self.geoms)
+        ng = len(all_geoms)
+        geom_slot = np.array(
+            [slot_names[g.body] for g in all_geoms], np.int64
+        ) if ng else np.zeros(0, np.int64)
+        geom_pos = np.stack([g.pos for g in all_geoms]).astype(dt) if ng else np.zeros((0, 3), dt)
+        geom_quat = np.stack([g.quat for g in all_geoms]).astype(dt) if ng else np.zeros((0, 4), dt)
+        geom_params = np.zeros((ng, 4), dt)
+        for i, g in enumerate(all_geoms):
+            geom_params[i, : len(g.params)] = g.params
+
+        vmax = max([1] + [len(g.verts) for g in all_geoms if g.verts is not None])
+        geom_verts = np.zeros((ng, vmax, 3), dt)
+        geom_nverts = np.zeros(ng, np.int64)
+        for i, g in enumerate(all_geoms):
+            if g.verts is not None:
+                geom_verts[i, : len(g.verts)] = g.verts
+                geom_nverts[i] = len(g.verts)
+
+        # rmax per pose slot (reference CCD.cpp:739) and the shape-only
+        # bounding radius per geometry
+        slot_rmax = np.zeros(ns, dt)
+        geom_rmax = np.zeros(ng, dt)
+        for i, g in enumerate(all_geoms):
+            if g.gtype == SPHERE:
+                geom_rmax[i] = g.params[0]
+            elif g.gtype == BOX:
+                geom_rmax[i] = float(np.linalg.norm(g.params[:3]))
+            else:
+                geom_rmax[i] = np.inf  # unbounded (plane)
+        for i, g in enumerate(all_geoms):
+            s = geom_slot[i]
+            off = np.linalg.norm(g.pos)
+            if g.rmax is not None:
+                slot_rmax[s] = max(slot_rmax[s], g.rmax)
+                continue
+            if g.gtype == SPHERE:
+                r = off + g.params[0]
+            elif g.gtype == BOX:
+                r = off + float(np.linalg.norm(g.params[:3]))
+            else:
+                r = off
+            slot_rmax[s] = max(slot_rmax[s], r)
+
+        # candidate pairs: geometry pairs across distinct bodies where at
+        # least one side is dynamic (enabled) — CollisionDetection.cpp:48-54
+        def pair_disabled(si, sj):
+            a, b = self.bodies[si].name, self.bodies[sj].name
+            return tuple(sorted((a, b))) in self.disabled_pairs
+
+        pair_rows = []
+        for i in range(ng):
+            for j in range(i + 1, ng):
+                si, sj = int(geom_slot[i]), int(geom_slot[j])
+                if si == sj:
+                    continue
+                if not (slot_enabled[si] or slot_enabled[sj]):
+                    continue
+                if pair_disabled(si, sj):
+                    continue
+                ta, tb = all_geoms[i].gtype, all_geoms[j].gtype
+                kind, flip = self._pair_kind(ta, tb)
+                if kind is _SKIP:
+                    continue
+                if kind is None:
+                    raise ValueError(
+                        f"no narrow-phase kernel for geometry pair "
+                        f"{_GEOM_NAMES.get(ta, ta)} vs {_GEOM_NAMES.get(tb, tb)} "
+                        f"(bodies '{all_geoms[i].body}' / "
+                        f"'{all_geoms[j].body}')")
+                ga, gb = (j, i) if flip else (i, j)
+                pair_rows.append((ga, gb, kind))
+
+        n_pairs = len(pair_rows)
+        pair_g1 = np.array([p[0] for p in pair_rows], np.int64)
+        pair_g2 = np.array([p[1] for p in pair_rows], np.int64)
+        pair_kind = np.array([p[2] for p in pair_rows], np.int64)
+
+        # contact slots
+        s_pair, s_s1, s_s2 = [], [], []
+        s_eps, s_mu_c, s_mu_v, s_comp, s_nk = [], [], [], [], []
+        s_kp, s_kv, s_truecone = [], [], []
+        # kinds whose kernels take an nslots argument and top-k to it (the
+        # only ones a per-pair max_slots cap may shrink)
+        _CAPPABLE = {K_PLANE_GENERIC, K_BOX_BOX}
+
+        def _cp_for(s1, s2):
+            key = tuple(sorted((self.bodies[s1].name, self.bodies[s2].name)))
+            return self.contact_params.get(key, ContactParams())
+
+        pair_cp, pair_nsl = [], []
+        for (ga, gb, kind) in pair_rows:
+            nsl = _kind_nslots(kind, vmax)
+            cp = _cp_for(int(geom_slot[ga]), int(geom_slot[gb]))
+            if cp.max_slots > 0 and kind in _CAPPABLE:
+                nsl = min(nsl, cp.max_slots)
+            pair_cp.append(cp)
+            pair_nsl.append(nsl)
+
+        group_of: dict = {}
+        for p, (ga, gb, kind) in enumerate(pair_rows):
+            group_of.setdefault((int(kind), int(pair_nsl[p])), []).append(p)
+
+        pair_slot0 = np.zeros(n_pairs, np.int64)
+        pair_nslots = np.zeros(n_pairs, np.int64)
+        for p, (ga, gb, kind) in enumerate(pair_rows):
+            nsl = pair_nsl[p]
+            cp = pair_cp[p]
+            pair_slot0[p] = len(s_pair)
+            s1 = int(geom_slot[ga])
+            s2 = int(geom_slot[gb])
+            pair_nslots[p] = nsl
+            for _ in range(nsl):
+                s_pair.append(p)
+                s_s1.append(s1)
+                s_s2.append(s2)
+                s_eps.append(cp.epsilon)
+                s_mu_c.append(cp.mu_coulomb)
+                s_mu_v.append(cp.mu_viscous)
+                s_comp.append(cp.compliance)
+                # nk <= 0 = true cone (NQP); friction rows are then unused
+                s_nk.append(max(4, cp.nk) if cp.nk > 0 else 4)
+                s_truecone.append(cp.nk <= 0)
+                s_kp.append(cp.penalty_kp)
+                s_kv.append(cp.penalty_kv)
+        K = len(s_pair)
+
+        # friction rows: θ_j = j/(NK/2-1)·π/2 (setup_QP:461-479)
+        fr_con, fr_cos, fr_sin = [], [], []
+        for i in range(K):
+            half = s_nk[i] // 2
+            for j in range(half):
+                theta = (j / (half - 1)) * (math.pi / 2) if half > 1 else 0.0
+                fr_con.append(i)
+                fr_cos.append(math.cos(theta))
+                fr_sin.append(math.sin(theta))
+        NF = len(fr_con)
+
+        kind_groups = {}
+        for gkey, v in group_of.items():
+            kind_groups[gkey] = {
+                "kind": gkey[0],
+                "pairs": np.array(v, np.int64),
+                "slots": np.concatenate(
+                    [pair_slot0[p] + np.arange(pair_nslots[p], dtype=np.int64)
+                     for p in v]
+                ),
+                "nslots": gkey[1],
+            }
+
+        fields = dict(
+            mass=mass, inv_mass=inv_mass, inertia=inertia,
+            inv_inertia=inv_inertia, enabled=enabled,
+            slot_enabled=slot_enabled, slot_rmax=slot_rmax,
+            geom_slot=geom_slot, geom_pos=geom_pos, geom_quat=geom_quat,
+            geom_params=geom_params, geom_rmax=geom_rmax,
+            pair_g1=pair_g1, pair_g2=pair_g2, pair_kind=pair_kind,
+            pair_slot0=pair_slot0, pair_nslots=pair_nslots,
+            slot_pair=np.array(s_pair, np.int64),
+            slot_s1=np.array(s_s1, np.int64),
+            slot_s2=np.array(s_s2, np.int64),
+            slot_eps=np.array(s_eps, dt),
+            slot_mu_c=np.array(s_mu_c, dt),
+            slot_mu_v=np.array(s_mu_v, dt),
+            slot_compliance=np.array(s_comp, dt),
+            slot_compliant=np.zeros(K, bool),
+            slot_truecone=np.array(s_truecone, bool) if K else np.zeros(0, bool),
+            slot_kp=np.array(s_kp, dt),
+            slot_kv=np.array(s_kv, dt),
+            lim_gc_col=np.zeros(0, np.int64),
+            lim_q_idx=np.zeros(0, np.int64),
+            lim_upper=np.zeros(0, bool),
+            lim_value=np.zeros(0, dt),
+            lim_eps=np.zeros(0, dt),
+            fr_con=np.array(fr_con, np.int64),
+            fr_cos=np.array(fr_cos, dt),
+            fr_sin=np.array(fr_sin, dt),
+            geom_verts=geom_verts, geom_nverts=geom_nverts,
+            gravity=self.gravity.astype(dt),
+            contact_dist_thresh=np.array(self.contact_dist_thresh, dt),
+            min_step_size=np.array(self.min_step_size, dt),
+            dissipation_lambda=np.array([b.dissipation for b in self.bodies], dt),
+            drag_lin=np.array(
+                [self.drag_lin.get(b.name, 0.0) for b in self.bodies], dt),
+            drag_ang=np.array(
+                [self.drag_ang.get(b.name, 0.0) for b in self.bodies], dt),
+            nb=nb, ng=ng, n_pose_slots=ns, ngc=ngc, nq_art=0, nv_art=0,
+            n_pairs=n_pairs, n_contacts=K, n_friction_rows=NF, n_limits=0,
+            vmax=vmax,
+            use_noslip=bool(K > 0 and all(m >= 1e2 for m in s_mu_c)),
+            use_nqp=bool(K > 0 and any(s_truecone)),
+            # slots disagree on the model -> islands can route differently
+            mixed_models=bool(
+                K > 0
+                and (
+                    (any(m >= 1e2 for m in s_mu_c)
+                     and any(m < 1e2 for m in s_mu_c))
+                    or (any(s_truecone)
+                        and any((not t) and m < 1e2
+                                for t, m in zip(s_truecone, s_mu_c)))
+                )
+            ),
+            has_compliant=False,
+            stab_max_iters=int(self.stab_max_iters),
+            legacy_velocity_first=bool(self.legacy_velocity_first),
+            has_dyn_slots=False,
+            kind_groups=kind_groups,
+            body_names=tuple(b.name for b in self.bodies),
+        )
+        scene = scene_from_arrays(fields, dev, fdtype)
+
+        def stack(attr, width):
+            return (np.stack([getattr(b, attr) for b in self.bodies]).astype(dt)
+                    if nb else np.zeros((0, width), dt))
+
+        state = state_from_arrays(dict(
+            pos=stack("pos", 3), quat=stack("quat", 4),
+            vel=stack("lin_vel", 3), omega=stack("ang_vel", 3),
+            q_art=np.zeros(0, dt), qd_art=np.zeros(0, dt),
+            time=np.array(0.0, dt),
+            zlast=np.zeros(scene.n_lcp, dt),
+            zlast_active=np.zeros(K, bool),
+            min_dist_obs=np.zeros(n_pairs, dt),
+            solver_pivots=np.zeros((), np.int32),
+            solver_fallbacks=np.zeros((), np.int32),
+        ), dev, fdtype)
+        return scene, state

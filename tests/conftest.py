@@ -15,3 +15,8 @@ import jax  # noqa: E402
 # start; force the CPU backend for deterministic f64 testing.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skipped where there is none)")

@@ -1,0 +1,157 @@
+"""Shared helpers of the PyTorch port's parity tests (tests/test_torch_*.py).
+
+The same inputs, made with numpy from a seed, go through a function of the
+JAX package `moby_tpu` and through its counterpart in `moby_tpu_torch`; data
+crosses between the two frameworks as numpy arrays only. Both run on the CPU
+in float64 unless a test says otherwise.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import torch
+
+from moby_tpu.core import scene as jsc
+from moby_tpu.math import quaternion as jquat
+from moby_tpu_torch.core import scene as tsc
+
+PLANE_RPY = [1.5707963267949, 0, 0]
+
+
+def plane_quat():
+    return np.asarray(jquat.from_rpy(jnp.array(PLANE_RPY)))
+
+
+def build_stack(sc, nk=16, mu=0.5, eps=0.3):
+    """The 3-sphere friction+restitution stack of the repo's benchmark, on
+    the scene module `sc` of either package."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    inertia = sc.sphere_inertia(1.0, 1.0)
+    b.add_body("sph1", mass=1.0, inertia=inertia, pos=np.array([0, 0, 1.0]))
+    b.add_body("sph2", mass=1.0, inertia=inertia, pos=np.array([0, 0, 3.0]))
+    b.add_body("sph3", mass=1.0, inertia=inertia, pos=np.array([0, 0, 5.0]))
+    b.add_body("ground", enabled=False)
+    for n in ("sph1", "sph2", "sph3"):
+        b.add_geom(n, sc.SPHERE, [1.0])
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    cp = sc.ContactParams(epsilon=eps, mu_coulomb=mu, nk=nk)
+    b.set_contact_params("ground", "sph1", cp)
+    b.set_contact_params("sph1", "sph2", cp)
+    b.set_contact_params("sph2", "sph3", cp)
+    return b
+
+
+def build_ballpush(sc):
+    """The ball-push scene of the repo's contact-MPC benchmark."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ball", mass=1.0, inertia=sc.sphere_inertia(1.0, 0.5),
+               pos=np.array([0.0, 0.0, 0.5]))
+    b.add_body("ground", enabled=False)
+    b.add_geom("ball", sc.SPHERE, [0.5])
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params(
+        "ground", "ball", sc.ContactParams(epsilon=0.0, mu_coulomb=0.5, nk=4))
+    return b
+
+
+def build_box_on_plane(sc):
+    """A box dropped slightly tilted onto the plane, with a sphere on top."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    q = np.asarray(jquat.from_rpy(jnp.array([0.02, -0.03, 0.3])))
+    b.add_body("box", mass=2.0, inertia=sc.box_inertia(2.0, 0.5, 0.4, 0.3),
+               pos=np.array([0.0, 0.0, 0.3005]), quat=q,
+               lin_vel=np.array([0.3, 0.0, -0.2]))
+    b.add_body("ball", mass=0.5, inertia=sc.sphere_inertia(0.5, 0.25),
+               pos=np.array([0.1, 0.05, 0.8506]))
+    b.add_body("ground", enabled=False)
+    b.add_geom("box", sc.BOX, [0.5, 0.4, 0.3])
+    b.add_geom("ball", sc.SPHERE, [0.25])
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params(
+        "ground", "box", sc.ContactParams(epsilon=0.1, mu_coulomb=0.4, nk=4))
+    b.set_contact_params(
+        "ball", "box", sc.ContactParams(epsilon=0.2, mu_coulomb=0.3, nk=4))
+    b.set_contact_params(
+        "ball", "ground", sc.ContactParams(epsilon=0.0, mu_coulomb=0.3, nk=4))
+    return b
+
+
+def build_box_on_box(sc, max_slots=0):
+    """A box dropped slightly tilted onto a fixed box (box-box contact);
+    `max_slots` caps the pair's contact slots (the deepest-vertex route)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    q = np.asarray(jquat.from_rpy(jnp.array([0.015, -0.02, 0.4])))
+    b.add_body("box", mass=2.0, inertia=sc.box_inertia(2.0, 0.3, 0.25, 0.2),
+               pos=np.array([0.05, -0.02, 0.7004]), quat=q,
+               lin_vel=np.array([0.2, 0.0, -0.1]))
+    b.add_body("base", enabled=False, pos=np.array([0.0, 0.0, 0.25]))
+    b.add_geom("box", sc.BOX, [0.3, 0.25, 0.2])
+    b.add_geom("base", sc.BOX, [1.0, 1.0, 0.25])
+    b.set_contact_params("base", "box", sc.ContactParams(
+        epsilon=0.1, mu_coulomb=0.4, nk=4, max_slots=max_slots))
+    return b
+
+
+def jax_fields(obj):
+    """A compiled JAX Scene/State as a dict of numpy arrays and statics."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = np.asarray(v) if isinstance(v, jax.Array) else v
+    return out
+
+
+def torch_scene_state(jscene, jstate, dtype=torch.float64):
+    """The port's Scene/State on the CPU from the JAX package's compiled
+    ones, so both sides compute on the same tables."""
+    return (tsc.scene_from_arrays(jax_fields(jscene), "cpu", dtype),
+            tsc.state_from_arrays(jax_fields(jstate), "cpu", dtype))
+
+
+def batch_jax_state(jstate, B, dz):
+    """B copies of a JAX state with per-scenario height jitter dz (B, nb)."""
+    batched = jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x, (B,) + x.shape), jstate)
+    return batched.replace(pos=batched.pos.at[:, :, 2].add(jnp.asarray(dz)))
+
+
+def batch_torch_state(tstate, B, dz):
+    st = tstate.expand(B)
+    pos = st.pos.clone()
+    pos[:, :, 2] += torch.as_tensor(dz, dtype=pos.dtype)
+    return st.replace(pos=pos)
+
+
+def t2n(x):
+    return x.detach().cpu().numpy()
+
+
+def make_monotone(B, n, seed=0, dtype=np.float64, delta=0.5):
+    """M = A Aᵀ + δI, q ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, n, n)).astype(dtype)
+    Ms = np.einsum("bij,bkj->bik", A, A) + delta * np.eye(n, dtype=dtype)
+    qs = rng.normal(size=(B, n)).astype(dtype)
+    return Ms, qs
+
+
+def make_kkt(B, nv, ni, seed=0, dtype=np.float64):
+    """KKT-shaped LCPs [[H, -Gᵀ], [G, 0]] with H SPD: the shape of the impact
+    QP's stack (monotone, not symmetric, zero lower-right block)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, nv, nv))
+    H = np.einsum("bij,bkj->bik", A, A) + 0.3 * np.eye(nv)
+    G = rng.normal(size=(B, ni, nv))
+    M = np.zeros((B, nv + ni, nv + ni))
+    M[:, :nv, :nv] = H
+    M[:, :nv, nv:] = -np.transpose(G, (0, 2, 1))
+    M[:, nv:, :nv] = G
+    q = np.concatenate(
+        [rng.normal(size=(B, nv)), np.abs(rng.normal(size=(B, ni)))], axis=1)
+    return M.astype(dtype), q.astype(dtype)

@@ -1,0 +1,147 @@
+"""PyTorch port: `moby_tpu_torch.core.scene` against `moby_tpu.core.scene`.
+
+The port's own `SceneBuilder.compile()` must give the same arrays and statics
+as the JAX package's for the benchmark scenes (equal, not close: both run the
+same host-side numpy), and `scene_from_arrays`/`state_from_arrays` must carry
+a compiled JAX scene across unchanged.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from moby_tpu.core import scene as jsc
+from moby_tpu_torch.core import scene as tsc
+from test_torch_helpers import (
+    build_ballpush, build_box_on_box, build_box_on_plane, build_stack, jax_fields, t2n,
+    torch_scene_state,
+)
+
+SCENES = {
+    "stack_nk16": lambda sc: build_stack(sc, nk=16),
+    "stack_nk4": lambda sc: build_stack(sc, nk=4),
+    "ballpush": build_ballpush,
+    "box_on_plane": build_box_on_plane,
+    "box_on_box": build_box_on_box,
+    "box_on_box_capped": lambda sc: build_box_on_box(sc, max_slots=6),
+}
+
+
+def _assert_same(tobj, jfields, names):
+    for k in names:
+        tv, jv = getattr(tobj, k), jfields[k]
+        if isinstance(tv, torch.Tensor):
+            tv = t2n(tv)
+            if jv.ndim == tv.ndim - 1:       # State: leading batch of 1
+                tv = tv[0]
+            assert tv.shape == jv.shape, k
+            np.testing.assert_array_equal(tv, jv, err_msg=k)
+        else:
+            assert tv == jv, k
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_compile_matches_jax(name):
+    jscene, jstate = SCENES[name](jsc).compile()
+    tscene, tstate = SCENES[name](tsc).compile(device="cpu")
+    assert tscene.dtype == torch.float64 and tstate.pos.dtype == torch.float64
+    jf = jax_fields(jscene)
+    _assert_same(tscene, jf, tsc._SCENE_ARRAYS + tsc._SCENE_STATICS
+                 + ("body_names",))
+    assert (tscene.n_vars, tscene.n_ineq, tscene.n_lcp) == (
+        jscene.n_vars, jscene.n_ineq, jscene.n_lcp)
+    assert set(tscene.kind_groups) == set(jscene.kind_groups)
+    for key, grp in jscene.kind_groups.items():
+        for f in ("pairs", "slots"):
+            np.testing.assert_array_equal(tscene.kind_groups[key][f], grp[f])
+        assert tscene.kind_groups[key]["nslots"] == grp["nslots"]
+    _assert_same(tstate, jax_fields(jstate), tsc._STATE_ARRAYS)
+    assert tstate.batch == 1
+
+
+def test_stack_sizes():
+    scene, _ = build_stack(tsc, nk=16).compile(device="cpu")
+    assert (scene.nb, scene.ngc, scene.n_pairs, scene.n_contacts) == (4, 24, 6, 6)
+    assert scene.n_friction_rows == 30 and scene.n_lcp == 66
+
+
+@pytest.mark.parametrize("name", ["stack_nk16", "box_on_plane"])
+def test_from_arrays_round_trip(name):
+    jscene, jstate = SCENES[name](jsc).compile()
+    tscene, tstate = torch_scene_state(jscene, jstate)
+    _assert_same(tscene, jax_fields(jscene), tsc._SCENE_ARRAYS + tsc._SCENE_STATICS)
+    _assert_same(tstate, jax_fields(jstate), tsc._STATE_ARRAYS)
+    # float32 on request; the state follows
+    s32, st32 = torch_scene_state(jscene, jstate, torch.float32)
+    assert s32.mass.dtype == torch.float32 and st32.pos.dtype == torch.float32
+    assert s32.slot_pair.dtype == torch.int64 and s32.enabled.dtype == torch.bool
+
+
+def test_state_expand_replace_to():
+    _, st = build_stack(tsc, nk=4).compile(device="cpu")
+    st5 = st.expand(5)
+    assert st5.batch == 5 and st5.zlast.shape == (5, st.zlast.shape[1])
+    st5.pos[0, 0, 0] = 7.0                      # expanded copies are independent
+    assert float(st5.pos[1, 0, 0]) == 0.0 and float(st.pos[0, 0, 0]) == 0.0
+    st2 = st5.replace(time=st5.time + 1.0)
+    assert float(st2.time[0]) == 1.0 and float(st5.time[0]) == 0.0
+    assert st5.to("cpu").pos.device.type == "cpu"
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        st5.pos = st5.pos
+
+
+def test_compile_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal where there is no card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_stack(tsc).compile()
+
+
+def _unported_features():
+    def articulated(b):
+        b.add_articulated("arm", model=None)
+
+    def pool(b):
+        b.set_pair_pool(tsc.SPHERE, tsc.SPHERE, 4)
+
+    def gear(b):
+        b.add_gear_constraint("arm", "a", "b", 2.0)
+
+    def point(b):
+        b.add_point_constraint("sph1", [0, 0, 0], "sph2", [0, 0, 0])
+
+    def planar(b):
+        b.add_planar_constraint("sph1", "ground", [0, 0, 1])
+
+    def plugin(b):
+        b.add_custom_pair("sph1", "sph2", lambda *a: None, 1)
+
+    def compliant(b):
+        b.add_body("soft", mass=1.0, compliant=True)
+
+    def heightmap(b):
+        b.add_geom("sph1", tsc.HEIGHTMAP, [1.0, 1.0], heights=np.zeros((2, 2)))
+
+    def trimesh(b):
+        b.add_geom("sph1", tsc.TRIMESH, [0.0], verts=np.zeros((3, 3)),
+                   faces=np.array([[0, 1, 2]]))
+
+    def cylinder(b):
+        b.add_geom("sph1", tsc.CYLINDER, [0.5, 1.0])
+
+    def torus(b):
+        b.add_geom("sph1", tsc.TORUS, [1.0, 0.2])
+
+    return {f.__name__: f for f in (
+        articulated, pool, gear, point, planar, plugin, compliant, heightmap,
+        trimesh, cylinder, torus)}
+
+
+@pytest.mark.parametrize("feature", list(_unported_features()))
+def test_unported_features_raise_at_compile(feature):
+    b = build_stack(tsc, nk=4)
+    _unported_features()[feature](b)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        b.compile(device="cpu")
