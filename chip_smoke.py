@@ -8,29 +8,48 @@ Run from the repository root on a machine with one NVIDIA GPU (sm_90a):
 It needs no network and no JAX. Phases, each of which fails the run:
 
 1. device  — a CUDA device is present; prints its name and power limit.
-2. build   — compiles `moby_tpu_torch/csrc/ppm_lcp.cu` with nvcc and loads it.
-3. kernels — `hopper_lcp.ppm_lcp` against `hopper_lcp.ppm_lcp_plain` on the
-             card, float32 and float64, at the contact step's shapes
-             (n=66 and n=6, B=512): monotone and KKT-shaped problems, cold and
-             warm, partial masks, an all-false mask, q>0, a singular problem.
-             On the stack's own KKT problems, whose z is not unique, the
-             contact impulses and the contact-space velocity change they
-             cause are compared instead.
+2. build   — compiles `moby_tpu_torch/csrc/ppm_lcp.cu` and `bpp_lcp.cu` with
+             nvcc (both at once) and loads them.
+3. kernels — `hopper_lcp.ppm_lcp` against `ppm_lcp_plain` and
+             `hopper_lcp.bpp_lcp` against `bpp_lcp_plain` on the card, float32
+             and float64, at the contact step's shapes (n=66 and n=6, B=512)
+             and, for `bpp_lcp`, at the contact-MPC's (the ball-push impact
+             LCP, B=1536): monotone and KKT-shaped problems, cold and warm,
+             partial masks, an all-false mask, q>0, a singular problem; for
+             `bpp_lcp` also a case whose block stage runs out so that the PPM
+             stage finishes, and a NaN-poisoned one. On the stack's own KKT
+             problems, whose z is not unique, the contact impulses and the
+             contact-space velocity change they cause are compared instead.
 4. step    — the full-width contact step: the 3-sphere friction+restitution
              stack (mu=0.5, eps=0.3, nk=16, so the impact LCP has n=66),
              float32, B=512 scenarios with per-scenario height jitter, 50
-             steps of dt=1e-3 through `stepper.step`. The kernel's launch
-             count is set to 0 just before and read just after.
+             steps of dt=1e-3 through `stepper.step`. The kernels' launch
+             counts are set to 0 just before and read just after.
              Two more steps under torch.profiler then give the device's
              busy share of a step and the launches a step, by kernel name.
 5. parity  — the same scene at B=4 for 200 steps: card float32 against the
              port on the CPU in float64.
+6. mpc     — the full-width contact-MPC solve: `contact_mpc.solve_batch` on
+             the ball-push task, B=1536 scenarios with per-scenario x jitter,
+             H=50, dt=0.02, 4 iLQR iterations, float32, record/replay and warm
+             start on, through the kernel route (every block-pivoting stage
+             of the LCP cascade is one `bpp_lcp` launch). Launch counts are
+             set to 0 just before and read just after. A second, untimed
+             solve records what the cascade handed the kernel and where the
+             problems left it; a short profiled solve gives the device's busy
+             share and the launches per solve.
+7. mpcparity — the same task at B=8: card float32 through the kernel route
+             against the port on the CPU in float64 through the batched
+             route.
 
-Then the kernel is timed on the inputs the step phase really gave it, beside
-its plain version and its bound. Output: a `{"kernels": [...]}` JSON line, the
-card's name and power limit, and as the last line
+Then each kernel is timed on the inputs the main paths really gave it,
+beside its plain version and its bound; `bpp_lcp` also beside the batched
+`lcp_bpp` + `_verify` pair it stands for, on the MPC's inputs and on the
+step's recorded stage-1 problems. Output: a `{"kernels": [...]}` JSON line,
+the card's name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device the script exits with a non-zero code and no result.
+`--phases kernels` or `--phases mpc` are the short runs (no result line).
 """
 
 import argparse
@@ -42,12 +61,24 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("device", "build", "kernels", "step", "parity")
+PHASES = ("device", "build", "kernels", "step", "parity", "mpc", "mpcparity")
 BATCH = 512          # scenarios of the full-width step
+MPC_BATCH = 1536     # scenarios of the full-width contact-MPC solve
+MPC_HORIZON = 50     # steps of dt = MPC_DT in the MPC's horizon
+MPC_DT = 0.02
+MPC_ITERS = 4        # iLQR iterations of one solve
+MPC_PARITY_BATCH = 8
+STAGE1_KEEP = 16     # of the step's stage-1 problems kept for the timing
+# final mean cost, card float32 (kernel route) against CPU float64 (batched
+# route): iLQR is a local method and float32 rounding can move a member to
+# another line-search step; the means agree far inside this
+MPC_PARITY_RTOL = 0.05
 STEPS = 50           # steps of the full-width run
 PARITY_STEPS = 200   # steps of the float32-card against float64-CPU run
 SOURCE = "moby_tpu_torch/csrc/ppm_lcp.cu"
 REPLACES = "moby_tpu/solvers/pallas_lcp.py:226"   # ppm_lcp_one's pl.pallas_call
+BPP_SOURCE = "moby_tpu_torch/csrc/bpp_lcp.cu"
+BPP_REPLACES = "moby_tpu/solvers/pallas_lcp.py:591"   # bpp_lcp_batched's (and :546, bpp_lcp_one's)
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -138,6 +169,26 @@ def build_stack(device, dtype=None):
     return b.compile(device=device, dtype=dtype)
 
 
+def build_ballpush(device, dtype=None):
+    """The ball-push scene of the repo's contact-MPC benchmark: a ball of
+    radius 0.5 on a plane, mu=0.5, no restitution, nk=4."""
+    from moby_tpu_torch.core import scene as sc
+    from moby_tpu_torch.math import quaternion as quat
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ball", mass=1.0, inertia=sc.sphere_inertia(1.0, 0.5),
+               pos=np.array([0.0, 0.0, 0.5]))
+    b.add_body("ground", enabled=False)
+    b.add_geom("ball", sc.SPHERE, [0.5])
+    pq = quat.from_rpy(
+        torch.tensor([1.5707963267949, 0, 0], dtype=torch.float64)).numpy()
+    b.add_geom("ground", sc.PLANE, [0.0], quat=pq)
+    b.set_contact_params(
+        "ground", "ball", sc.ContactParams(epsilon=0.0, mu_coulomb=0.5, nk=4))
+    return b.compile(device=device, dtype=dtype)
+
+
 def jittered(st, B, seed):
     """B scenarios with the benchmark's per-scenario height jitter (numpy)."""
     dz = np.random.default_rng(seed).uniform(size=(B, st.pos.shape[1])) * 0.01
@@ -190,23 +241,33 @@ def phase_build():
     from moby_tpu_torch.solvers import hopper_lcp
 
     t0 = time.time()
-    path = hopper_lcp.build(force=True)
+    paths = hopper_lcp.build(force=True)
     hopper_lcp._load()
-    log(f"[build] nvcc -> {path} in {time.time() - t0:.1f} s")
+    log(f"[build] nvcc -> {sorted(paths.values())} in {time.time() - t0:.1f} s")
     for line in hopper_lcp.build_log.splitlines():
         if "registers" in line or "error" in line.lower() or "spill" in line:
             log(f"[build] {line.strip()}")
 
 
-def both_versions(name, M, q, mask, z0, verify=True):
+def both_versions(name, M, q, mask, z0, verify=True, solver="ppm", **kw):
     """Kernel and plain version on one batch: (zk, dk, zp, dp, pivots), after
     checking that the kernel's z is finite and (with `verify`) that every
-    problem either version calls done satisfies complementarity."""
+    problem either version calls done satisfies complementarity. `solver` is
+    "ppm" or "bpp"; `kw` goes to both versions (max_bpp, max_piv). For "bpp"
+    `pivots` counts block iterations and PPM pivots together."""
     from moby_tpu_torch.solvers import hopper_lcp, lcp
 
-    zk, dk = hopper_lcp.ppm_lcp(M, q, mask, z0=z0)
-    torch.cuda.synchronize()
-    zp, dp, piv, _ = hopper_lcp.ppm_lcp_plain(M, q, mask, z0=z0, with_pivots=True)
+    if solver == "ppm":
+        zk, dk = hopper_lcp.ppm_lcp(M, q, mask, z0=z0, **kw)
+        torch.cuda.synchronize()
+        zp, dp, piv, _ = hopper_lcp.ppm_lcp_plain(M, q, mask, z0=z0,
+                                                  with_pivots=True, **kw)
+    else:
+        zk, dk = hopper_lcp.bpp_lcp(M, q, mask, z0=z0, **kw)
+        torch.cuda.synchronize()
+        zp, dp, its, piv, _ = hopper_lcp.bpp_lcp_plain(M, q, mask, z0=z0,
+                                                       with_pivots=True, **kw)
+        piv = piv + its
     torch.cuda.synchronize()
     assert torch.isfinite(zk).all(), f"{name}: kernel returned non-finite z"
     if verify:
@@ -218,7 +279,8 @@ def both_versions(name, M, q, mask, z0, verify=True):
     return zk, dk, zp, dp, piv
 
 
-def check_kkt_case(name, scene, A, M, q, mask, z0):
+def check_kkt_case(name, scene, A, M, q, mask, z0, solver="ppm",
+                   min_both=0.3, min_well=0.1, well_tol=TOL, **kw):
     """Kernel against plain version on the stack's own KKT problems.
 
     These are monotone but not strictly: friction variables come in +/- pairs
@@ -235,12 +297,17 @@ def check_kkt_case(name, scene, A, M, q, mask, z0):
     from moby_tpu_torch.sim import impact
 
     dtype = M.dtype
-    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0)
+    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0, solver=solver, **kw)
     n_diff = int((dk != dp).sum())
     assert n_diff <= 0.15 * len(dk), (
         f"{name}: done differs on {n_diff} of {len(dk)} problems")
     both = dk & dp
-    assert int(both.sum()) >= 0.3 * len(dk), f"{name}: too few problems done in both"
+    assert int(both.sum()) >= min_both * len(dk), f"{name}: too few problems done in both"
+    if not bool(both.any()):
+        log(f"[kernels] {name:34s} {str(dtype)[6:]:8s} B={M.shape[0]} n={M.shape[1]} "
+            f"done kernel={int(dk.sum())} plain={int(dp.sum())} differ={n_diff}: "
+            f"none done in both, nothing to compare")
+        return 0.0, 0.0
     ik = impact._impulse_vec(scene, zk)[both]
     ip = impact._impulse_vec(scene, zp)[both]
     Ab = A[both]
@@ -252,8 +319,10 @@ def check_kkt_case(name, scene, A, M, q, mask, z0):
     idle = Ab.diagonal(dim1=1, dim2=2) == 0
     cond = torch.linalg.cond(Ab.double() + torch.diag_embed(idle.double()))
     well = cond <= KKT_WELL_CONDITIONED
-    assert int(well.sum()) >= 0.1 * len(dk), f"{name}: too few well-conditioned problems"
+    assert int(well.sum()) >= min_well * len(dk), f"{name}: too few well-conditioned problems"
     i_diff = (ik - ip).abs().amax(dim=1)
+    if not bool(well.any()):
+        well = cond <= cond.min()      # compare the best-conditioned one
     i_err, i_scale = float(i_diff[well].max()), max(1.0, float(ip[well].abs().max()))
     i_rest = float(i_diff[~well].max()) if bool((~well).any()) else 0.0
     log(f"[kernels] {name:34s} {str(dtype)[6:]:8s} B={M.shape[0]} n={M.shape[1]} "
@@ -266,19 +335,20 @@ def check_kkt_case(name, scene, A, M, q, mask, z0):
         f"not compared)")
     assert v_err <= KKT_VELOCITY_TOL[dtype] * v_scale, (
         f"{name}: contact-space velocity change differs by {v_err:.3e}")
-    assert float(v_diff[well].max()) <= TOL[dtype] * v_scale, (
+    assert float(v_diff[well].max()) <= well_tol[dtype] * v_scale, (
         f"{name}: contact-space velocity change differs by "
         f"{float(v_diff[well].max()):.3e} where A is well conditioned")
-    assert i_err <= TOL[dtype] * i_scale, (
+    assert i_err <= well_tol[dtype] * i_scale, (
         f"{name}: impulses differ by {i_err:.3e} where A is well conditioned")
     return v_err, i_err
 
 
-def check_case(name, M, q, mask, z0, verify=True):
+def check_case(name, M, q, mask, z0, verify=True, solver="ppm", **kw):
     """Kernel against plain version on one batch: equal `done`, z within TOL,
     complementarity of what is done. Returns (max_abs_err, n_done, pivots)."""
     dtype = M.dtype
-    zk, dk, zp, dp, piv = both_versions(name, M, q, mask, z0, verify)
+    zk, dk, zp, dp, piv = both_versions(name, M, q, mask, z0, verify,
+                                        solver=solver, **kw)
     n_diff = int((dk != dp).sum())
     assert n_diff == 0, f"{name}: done differs on {n_diff} of {len(dk)} problems"
     scale = max(1.0, float(zp.abs().max()))
@@ -289,6 +359,99 @@ def check_case(name, M, q, mask, z0, verify=True):
         f"done={int(dk.sum())}/{len(dk)} pivots={int(piv.sum())} "
         f"max_abs_err={err:.3e}")
     return err, int(dk.sum()), piv
+
+
+def phase_kernels_bpp():
+    """`hopper_lcp.bpp_lcp` against `bpp_lcp_plain` on the card, float32 and
+    float64: at the contact-MPC's shape (the ball-push impact LCP, B=MPC_BATCH)
+    and at the contact step's (n=66 and n=6, B=BATCH). Returns the largest
+    |z_kernel - z_plain| over the cases where z is unique."""
+    from moby_tpu_torch.solvers.hopper_lcp import bpp_lcp_plain
+
+    n_mpc = build_ballpush("cpu")[0].n_lcp
+    log(f"[kernels] bpp_lcp: the ball-push impact LCP has n={n_mpc}")
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for n, B in ((n_mpc, MPC_BATCH), (66, BATCH), (6, BATCH)):
+            def case(name, *a, **kw):
+                return check_case(f"bpp {name} n={n}", *a, solver="bpp", **kw)
+
+            M, q = monotone(B, n, 1, dtype)
+            full = torch.ones(B, n, dtype=torch.bool, device=DEVICE)
+            e, nd, _ = case("monotone cold", M, q, full, None, max_bpp=12)
+            assert nd == B
+            worst = max(worst, e)
+            zc, okc = bpp_lcp_plain(M, q, full, max_bpp=12)
+            assert bool(okc.all())
+            # warm from the cold solution: the same z, in one iteration (a
+            # few more where a component of z lies below ztol and so is not
+            # in the warm start's support)
+            e, nd, piv = case("monotone warm from solution", M, q, full,
+                              zc.contiguous(), max_bpp=12)
+            assert nd == B and float(piv.double().mean()) < 3.0
+            worst = max(worst, e)
+            rng = np.random.default_rng(2)
+            part = torch.tensor(rng.uniform(size=(B, n)) < 0.7, device=DEVICE)
+            part[0] = False
+            z0 = torch.tensor(np.abs(rng.normal(size=(B, n))), dtype=dtype,
+                              device=DEVICE)
+            z0[:, ::2] = 0.0
+            e, nd, _ = case("monotone warm garbage, partial mask", M, q, part,
+                            z0, max_bpp=12)
+            assert nd == B
+            worst = max(worst, e)
+            none = torch.zeros_like(full)
+            e, nd, piv = case("all-false mask", M, q, none, z0)
+            assert nd == B and e == 0.0 and int(piv.sum()) == 0
+            e, nd, piv = case("q>0", M, q.abs() + 0.1, full, None)
+            assert nd == B and e == 0.0 and int(piv.sum()) == 0
+            # the block stage runs out after one iteration and the PPM stage
+            # finishes from its basis
+            e, nd, piv = case("monotone max_bpp=1 (PPM stage finishes)", M, q,
+                              full, None, max_bpp=1)
+            assert nd == B and int(piv.max()) > 1
+            worst = max(worst, e)
+            if n > 2:
+                # singular: a zero row/column whose q wants to enter, so
+                # w = -1 there whatever z is. ok is verified: both say 0
+                # (where 1 > tol = m·‖M‖∞·sqrt(eps)) or both 1 (float32 at
+                # n=66, where tol is about 10)
+                Ms, qs = M.clone(), q.clone()
+                Ms[:, 2, :] = 0.0
+                Ms[:, :, 2] = 0.0
+                qs[:, 2] = -1.0
+                e, nd, _ = case("singular (zero row/col)", Ms, qs, full, None,
+                                max_bpp=12)
+                assert nd in (0, B)
+                # NaN in q: no violator is ever seen, the check fails: ok=0
+                qn = -q.abs()
+                qn[:, 1] = float("nan")
+                zk, okk, zp, okp, _ = both_versions(
+                    f"bpp NaN in q n={n}", M, qn, full, None, verify=False,
+                    solver="bpp", max_bpp=12)
+                assert not bool(okk.any()) and not bool(okp.any()), (
+                    f"bpp NaN in q n={n}: ok set on a poisoned problem")
+                e = float((zk - zp).abs().max())
+                assert e <= TOL[dtype] * max(1.0, float(zp.abs().max()))
+                log(f"[kernels] bpp NaN in q n={n:<3d}                  "
+                    f"{str(dtype)[6:]:8s} B={B} ok=0 in both, max_abs_err={e:.3e}")
+        scene, Ak, Mk, qk, mk = stack_kkt(BATCH, 3, dtype)
+        # `ok` is verified here, and the block stage needs the friction
+        # splits' exact ties to fall well, so fewer of these made-up problems
+        # end ok than end `done` in the PPM kernel: no minimum count. Where
+        # rounding sends the two versions to different bases, both accepted
+        # at ztol, the well-conditioned problems' impulses differ by up to
+        # cond(A)·ztol (44 · 3e-4 in float32), which is KKT_VELOCITY_TOL's
+        # order and not TOL's
+        check_kkt_case("bpp stack KKT n=66 cold", scene, Ak, Mk, qk, mk, None,
+                       solver="bpp", min_both=0.0, min_well=0.0,
+                       well_tol=KKT_VELOCITY_TOL, max_bpp=12)
+        Mr = (Mk + 0.05 * torch.diag_embed(mk.to(dtype))).contiguous()
+        e, nd, _ = check_case("bpp stack KKT + 0.05 I n=66 cold", Mr, qk, mk,
+                              None, solver="bpp", max_bpp=12)
+        assert nd == BATCH
+        worst = max(worst, e)
+    return worst
 
 
 def phase_kernels():
@@ -344,7 +507,7 @@ def phase_kernels():
 def phase_step():
     """The main path: BATCH scenarios of the stack through `stepper.step`."""
     from moby_tpu_torch.sim import stepper
-    from moby_tpu_torch.solvers import hopper_lcp
+    from moby_tpu_torch.solvers import hopper_lcp, lcp
 
     B, n_steps = BATCH, STEPS
     scene, st = build_stack(DEVICE)
@@ -361,12 +524,23 @@ def phase_step():
         recorded.append((M, q, mask, z0))
         return wrapper(M, q, mask, z0=z0, max_piv=max_piv)
 
+    # ... and the stage-1 problems of the cascade (what batched `lcp_bpp` is
+    # given), so that `bpp_lcp` can be timed on them beside it
+    stage1 = []
+    batched_bpp = lcp.lcp_bpp
+
+    def recording_bpp(M, q, mask, z0=None, skip=None, **kw):
+        stage1.append((M, q, mask, z0, skip))
+        return batched_bpp(M, q, mask, z0=z0, skip=skip, **kw)
+
     stepper.step(scene, st, 1e-3, device=DEVICE)   # warm-up step, not counted
     torch.cuda.synchronize()
     # the wrapper counts on the function that `hopper_lcp.ppm_lcp` names, so
     # the stand-in carries the count while it is in place
     hopper_lcp.ppm_lcp = recording
+    lcp.lcp_bpp = recording_bpp
     recording.launches = 0
+    hopper_lcp.bpp_lcp.launches = 0
     piv_total = torch.zeros((), dtype=torch.int64, device=DEVICE)
     solved_steps = torch.zeros((), dtype=torch.int64, device=DEVICE)
     t0 = time.time()
@@ -378,6 +552,11 @@ def phase_step():
     elapsed = time.time() - t0
     launches = recording.launches
     hopper_lcp.ppm_lcp = wrapper
+    lcp.lcp_bpp = batched_bpp
+    assert hopper_lcp.bpp_lcp.launches == 0    # the step's cascade has no bpp_lcp stage
+    # keep the stage-1 problems that had something to solve
+    stage1 = [r for r in stage1
+              if r[4] is None or not bool(r[4].all())][:STAGE1_KEEP]
 
     for name in ("pos", "quat", "vel", "omega", "zlast"):
         assert torch.isfinite(getattr(st, name)).all(), f"step: {name} not finite"
@@ -402,7 +581,7 @@ def phase_step():
     assert int(solved_steps) > 0, "step: no impact was ever solved"
     device_share(lambda: stepper.step(scene, st, 1e-3, device=DEVICE),
                  elapsed / n_steps)
-    return launches, recorded, B * n_steps / elapsed
+    return launches, recorded, B * n_steps / elapsed, stage1
 
 
 def device_share(step_fn, step_seconds, n_steps=2):
@@ -427,6 +606,204 @@ def device_share(step_fn, step_seconds, n_steps=2):
         f"(idle share {1.0 - busy / step_seconds:.3f}), {n_kernels:.0f} kernel launches a step")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
         log(f"[step]   {us / n_steps / 1e3:8.3f} ms/step {count / n_steps:8.0f} launches/step  {key[:90]}")
+
+
+# --------------------------------------------------------------------- MPC
+def ballpush_task(device, B, seed, dtype=None):
+    """The ball-push contact-MPC task of the repo's benchmark: push the ball
+    to x=0.5 at the end of the horizon with small control effort. B scenarios
+    with a numpy-made x jitter of the ball in [-0.1, 0.1)."""
+    from moby_tpu_torch.mpc import contact_mpc
+
+    scene, st = build_ballpush(device, dtype)
+    prob = contact_mpc.MPCProblem(scene=scene, template=st, dt=MPC_DT,
+                                  horizon=MPC_HORIZON)
+    dx = np.random.default_rng(seed).uniform(size=B) * 0.2 - 0.1
+    states = st.expand(B)
+    pos = states.pos.clone()
+    pos[:, 0, 0] += torch.tensor(dx, dtype=pos.dtype, device=pos.device)
+    states = states.replace(pos=pos)
+    target = torch.tensor([0.5, 0.0], dtype=pos.dtype, device=pos.device)
+
+    def cost(x, u):
+        return 1e-4 * (u[:, :6] ** 2).sum(dim=1)
+
+    def cost_final(x):
+        return 50.0 * ((x[:, 0:2] - target) ** 2).sum(dim=1)
+
+    return prob, states, cost, cost_final
+
+
+def phase_mpc():
+    """The second main path: MPC_BATCH ball-push solves through
+    `contact_mpc.solve_batch` on the card."""
+    from moby_tpu_torch.mpc import contact_mpc
+    from moby_tpu_torch.solvers import difflcp, hopper_lcp, lcp
+
+    B = MPC_BATCH
+    prob, states, cost, cost_final = ballpush_task(DEVICE, B, 0)
+    assert states.pos.dtype == torch.float32
+    n = prob.scene.n_lcp
+    assert difflcp._use_kernel(states.zlast[:, None, :].expand(B, n, n),
+                               difflcp.DEFAULT_OPTIONS), "mpc: not on the kernel route"
+
+    def solve(n_iters):
+        return contact_mpc.solve_batch(prob, states, cost, cost_final,
+                                       n_iters=n_iters, device=DEVICE)
+
+    c0 = solve(0).cost            # the initial rollout's cost
+    solve(1)                      # warm-up of the backward sweep, not counted
+    torch.cuda.synchronize()
+
+    # ---- the timed solve: counts to 0 just before, read just after
+    hopper_lcp.bpp_lcp.launches = 0
+    hopper_lcp.ppm_lcp.launches = 0
+    t0 = time.time()
+    res = solve(MPC_ITERS)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = hopper_lcp.bpp_lcp.launches
+    assert hopper_lcp.ppm_lcp.launches == 0     # the PPM rescue is off by default
+
+    nan = int((~torch.isfinite(res.cost)).sum())
+    assert nan == 0, f"mpc: {nan} members ended with a non-finite cost"
+    assert res.us.shape == (B, MPC_HORIZON, 6) and res.xs.shape == (B, MPC_HORIZON + 1, 13)
+    assert torch.isfinite(res.us).all() and torch.isfinite(res.xs).all()
+    worse = int((res.cost > c0).sum())
+    assert worse == 0, f"mpc: {worse} members ended above their initial cost"
+    fell = float((res.cost < c0).double().mean())
+    assert launches > 0, "mpc: the solve never launched bpp_lcp"
+    log(f"[mpc] B={B} H={MPC_HORIZON} dt={MPC_DT} iters={MPC_ITERS} float32 n_lcp={n}: "
+        f"{elapsed:.2f} s, {B / elapsed:.1f} solves/s")
+    log(f"[mpc] cost: initial mean {float(c0.mean()):.4f}, final mean "
+        f"{float(res.cost.mean()):.4f}, worst {float(res.cost.max()):.4f}; cost fell "
+        f"for {fell:.3f} of the members; NaN costs {nan}")
+    # the ball was pushed toward the target, and stays on the plane
+    x_end = res.xs[:, -1, 0]
+    assert float((x_end - 0.5).abs().mean()) < float((res.xs[:, 0, 0] - 0.5).abs().mean())
+    assert float(res.xs[:, :, 2].min()) > 0.5 - 5e-3, "mpc: the ball sank into the plane"
+
+    # ---- the same solve again, untimed: what the cascade handed the kernel
+    # and where the problems left it. With the default options a cascade is
+    # four `bpp_lcp` calls (stage 1, stage 2, two ladder rungs), each handed
+    # only what the stages before it left unsolved, then the regularized
+    # sweep on the rest; whatever that leaves is poisoned.
+    assert difflcp.DEFAULT_OPTIONS.stage2 and len(difflcp.DEFAULT_OPTIONS.ladder) == 2 \
+        and not difflcp.DEFAULT_OPTIONS.ppm_rescue and difflcp.DEFAULT_OPTIONS.rescue
+    position = ("stage1", "stage2", "ladder", "ladder")
+    recorded = []
+    counts = {"calls": 0}
+    tally = {k: torch.zeros((), dtype=torch.int64, device=DEVICE)
+             for k in ("empty", "stage1", "stage2", "ladder", "rescue", "poisoned")}
+    handed = 0
+    wrapper, sweep = hopper_lcp.bpp_lcp, lcp.lcp_fast_regularized
+
+    def recording(M, q, mask, z0=None, max_bpp=24, max_piv=None):
+        nonlocal handed
+        pos = counts["calls"] % 4
+        counts["calls"] += 1
+        handed += mask.shape[0]
+        # whole cascades, every 25th of them
+        if mask.shape[0] == B and ((counts["calls"] - 1) // 4) % 25 == 0 \
+                and len(recorded) < 64:
+            recorded.append((M, q, mask, z0, max_bpp))
+        z, ok = wrapper(M, q, mask, z0=z0, max_bpp=max_bpp, max_piv=max_piv)
+        work = mask.any(dim=1)
+        if pos == 0:
+            tally["empty"] += (~work).sum()
+        tally[position[pos]] += (ok & work).sum()
+        return z, ok
+
+    def recording_sweep(M, q, mask, z0=None, skip=None):
+        z, ok = sweep(M, q, mask, z0=z0, skip=skip)
+        tally["rescue"] += (ok & ~skip).sum()
+        tally["poisoned"] += (~ok & ~skip).sum()
+        return z, ok
+
+    # the wrapper counts on the function that `hopper_lcp.bpp_lcp` names, so
+    # the stand-in carries the count while it is in place
+    recording.launches = 0
+    hopper_lcp.bpp_lcp, lcp.lcp_fast_regularized = recording, recording_sweep
+    res2 = solve(MPC_ITERS)
+    torch.cuda.synchronize()
+    hopper_lcp.bpp_lcp, lcp.lcp_fast_regularized = wrapper, sweep
+    stages = {k: int(v) for k, v in tally.items()}
+    assert counts["calls"] == recording.launches == launches and launches % 4 == 0, (
+        counts["calls"], recording.launches, launches)
+    # the same solve twice: equal unless a reduction's order changed between
+    # the runs, and then within the parity tolerance
+    drift = float((res2.cost - res.cost).abs().max())
+    assert drift <= MPC_PARITY_RTOL * float(res.cost.mean()), (
+        f"mpc: two runs of the same solve differ by {drift:.3e}")
+    nonempty = handed // 4 - stages["empty"]
+    log(f"[mpc] bpp_lcp launches={launches} a batch solve ({launches // 4} cascades of 4: "
+        f"{launches // (4 * MPC_HORIZON)} rollouts of {MPC_HORIZON} steps); problems handed "
+        f"to the kernel={handed}; cascades entered with a non-empty mask={nonempty}; the "
+        f"second run's costs differ from the first's by {drift:.3e}")
+    log(f"[mpc] problems leaving the cascade at each stage: {stages}")
+    assert sum(stages.values()) == handed // 4, (stages, handed)
+    assert stages["poisoned"] == 0, "mpc: a problem failed every stage of the cascade"
+    assert nonempty > 0, "mpc: the kernel never had a problem to solve"
+
+    # ---- launches and device share of a short solve (1 iteration), profiled
+    t0 = time.time()
+    solve(1)
+    torch.cuda.synchronize()
+    short = time.time() - t0
+    mpc_device_share(lambda: solve(1), short)
+    return launches, recorded, B / elapsed
+
+
+def mpc_device_share(solve_fn, seconds):
+    """Where a short solve's time goes: its device time by kernel name
+    (torch.profiler, device activity only: a solve is some 10^5 launches)
+    against its unprofiled time measured just before. A reading, not a
+    check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solve_fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages() if ev.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows) / 1e6
+    if busy <= 0:
+        log("[mpc] device time per solve: not measured (profiler saw no kernel)")
+        return
+    n_kernels = sum(r[2] for r in rows)
+    log(f"[mpc] one-iteration solve of the batch: device busy {busy * 1e3:.1f} ms of "
+        f"{seconds * 1e3:.1f} ms (idle share {1.0 - busy / seconds:.3f}), "
+        f"{n_kernels} kernel launches")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        log(f"[mpc]   {us / 1e3:9.3f} ms {count:8d} launches  {key[:90]}")
+
+
+def phase_mpc_parity():
+    """Card float32 through the kernel route against the port on the CPU in
+    float64 through the batched route, on the same task at a small batch."""
+    from moby_tpu_torch.mpc import contact_mpc
+
+    B = MPC_PARITY_BATCH
+    out = {}
+    for device in (DEVICE, "cpu"):
+        prob, states, cost, cost_final = ballpush_task(device, B, 11)
+        c0 = contact_mpc.solve_batch(prob, states, cost, cost_final, n_iters=0,
+                                     device=device).cost
+        res = contact_mpc.solve_batch(prob, states, cost, cost_final,
+                                      n_iters=MPC_ITERS, device=device)
+        out[device] = (c0.double().cpu(), res.cost.double().cpu())
+    (c0_gpu, c_gpu), (c0_cpu, c_cpu) = out[DEVICE], out["cpu"]
+    assert c_cpu.dtype == torch.float64
+    assert torch.isfinite(c_gpu).all() and torch.isfinite(c_cpu).all()
+    assert bool((c_gpu <= c0_gpu).all()) and bool((c_cpu <= c0_cpu).all())
+    rel = abs(float(c_gpu.mean()) - float(c_cpu.mean())) / float(c_cpu.mean())
+    worst = float(((c_gpu - c_cpu).abs() / c_cpu.abs().clamp_min(1e-12)).max())
+    log(f"[mpcparity] B={B}: final mean cost card float32 {float(c_gpu.mean()):.6f}, "
+        f"CPU float64 {float(c_cpu.mean()):.6f}: relative difference {rel:.3e} "
+        f"(worst member {worst:.3e}); initial mean {float(c0_cpu.mean()):.4f}")
+    assert rel <= MPC_PARITY_RTOL, f"mpcparity: mean costs differ by {rel:.3e}"
+    return rel
+
 
 
 def phase_parity():
@@ -480,26 +857,155 @@ def bound_ms(M, mask, z0, pivots, nb_sizes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, reps=20):
-    """Mean device time of the PPM kernel alone over `reps` calls of fn, from
+def device_ms(fn, reps=20, kernel="ppm_lcp_kernel"):
+    """Mean device time of the named kernel alone over `reps` calls of fn, from
     torch.profiler's kernel records (the wrapper's host work and its mask
-    conversion are left out); None if the profiler saw no such kernel."""
+    conversion are left out). The card's kernel records can reach the
+    profiler seconds after the kernels have ended, and a profile closed
+    before that has the launches without their kernels. So the profile stays
+    open a quarter of a second after the synchronise, and is taken again with
+    a wait of 1, 4 and 8 s if it has none. None if none had: the output then
+    says "not measured" and nothing fails, since the wait has no known bound."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if "ppm_lcp_kernel" in ev.key:
-            total_us = getattr(ev, "device_time_total", None)
-            if total_us is None:
-                total_us = ev.cuda_time_total
-            if total_us > 0 and ev.count > 0:
-                return total_us / ev.count / 1e3
+    for attempt, wait in enumerate((0.25, 1.0, 4.0, 8.0)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(wait)
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = ev.cuda_time_total
+                if us > 0:
+                    total_us += us
+                    count += ev.count
+        if count:
+            return total_us / count / 1e3
+        seen = [(ev.key[:60], ev.count) for ev in prof.key_averages()
+                if "kernel" in ev.key.lower()]
+        log(f"[timing] profile {attempt + 1} recorded no {kernel}; kernels it saw: {seen}")
+    log(f"[timing] device time of {kernel}: not measured")
     return None
+
+
+def bpp_bound_ms(M, mask, z0, solves, nb_sizes):
+    """As `bound_ms`, for one float32 `bpp_lcp` call: `solves` (B,) is the
+    block iterations plus the PPM pivots each problem took, `nb_sizes` the
+    size of each solve's nonbasic system; the check adds one product M z over
+    the m active rows, 2·m², for a problem that had anything to solve."""
+    t, which = bound_ms(M, mask, z0, solves, nb_sizes)
+    m = mask.sum(dim=1).double()
+    check = float((2.0 * m * m)[solves > 0].sum()) / PEAK_F32_FLOPS * 1e3
+    if which == "operations":
+        return t + check, which
+    k = nb_sizes.double()
+    ops = float(((2.0 / 3.0) * k ** 3 + 2.0 * m[None, :] * k).sum()) / PEAK_F32_FLOPS * 1e3
+    return (t, "bytes") if t >= ops + check else (ops + check, "operations")
+
+
+def batched_pair(M, q, mask, z0, skip, max_iters):
+    """The batched `lcp_bpp` + `_verify` pair that one `bpp_lcp` launch stands
+    for, as the cascades run it."""
+    from moby_tpu_torch.solvers import lcp
+
+    Mp, qp = lcp.pad_lcp(M, q, mask)
+    tol = lcp._check_tol(Mp, mask)
+    z, ok = lcp.lcp_bpp(M, q, mask, z0=z0, skip=skip, max_iters=max_iters)
+    return z, ok & lcp._verify(Mp, qp, z, mask, tol)
+
+
+def time_bpp_on(picks, label, hold=False):
+    """Mean ms over `picks` [(M, q, mask, z0, max_bpp)] of the kernel's wrapper
+    call, the batched pair on the same problems (skip = empty mask), the plain
+    version, and the bound; also how far kernel and pair agree. With `hold`
+    the kernel must agree with its plain version (ok, and z within TOL) and
+    with the batched pair (ok) on every problem of every pick."""
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    ms = pair_ms = plain_ms = bnd = err = 0.0
+    by = {"bytes": 0, "operations": 0}
+    solves = agree = total = 0
+    for (M, q, mask, z0, max_bpp) in picks:
+        skip = ~mask.any(dim=1)
+        zp, okp, its, piv, sizes = hopper_lcp.bpp_lcp_plain(
+            M, q, mask, z0=z0, max_bpp=max_bpp, with_pivots=True)
+        zk, okk = hopper_lcp.bpp_lcp(M, q, mask, z0=z0, max_bpp=max_bpp)
+        _, okb = batched_pair(M, q, mask, z0, skip, max_bpp)
+        agree += int((okk == (okb | skip)).sum())
+        total += len(okk)
+        if hold:
+            assert bool((okk == okp).all()), (
+                f"{label}: ok differs from the plain version's on "
+                f"{int((okk != okp).sum())} of {len(okk)} problems")
+            assert bool((okk == (okb | skip)).all()), (
+                f"{label}: ok differs from the batched pair's on "
+                f"{int((okk != (okb | skip)).sum())} of {len(okk)} problems")
+            scale = max(1.0, float(zp.abs().max()))
+            err = max(err, float((zk - zp).abs().max()) / scale)
+            assert err <= TOL[M.dtype], (
+                f"{label}: max|z_kernel - z_plain| = {err:.3e} of scale {scale:.3g}")
+        solves += int((its + piv).sum())
+        ms += time_cuda(lambda: hopper_lcp.bpp_lcp(M, q, mask, z0=z0, max_bpp=max_bpp), 20)
+        pair_ms += time_cuda(lambda: batched_pair(M, q, mask, z0, skip, max_bpp), 3, warmup=1)
+        plain_ms += time_cuda(
+            lambda: hopper_lcp.bpp_lcp_plain(M, q, mask, z0=z0, max_bpp=max_bpp), 2, warmup=1)
+        b, which = bpp_bound_ms(M, mask, z0, its + piv, sizes)
+        bnd += b
+        by[which] += 1
+    k = len(picks)
+    out = {"calls": k, "ms": ms / k, "batched_bpp_verify_ms": pair_ms / k,
+           "plain_ms": plain_ms / k, "bound_ms": bnd / k,
+           "bound_by": max(by, key=by.get), "solves": solves,
+           "ok_agrees_with_pair": f"{agree}/{total}"}
+    if hold:
+        out["max_rel_err_to_plain"] = err
+    log(f"[timing] bpp_lcp on {label}: {out}")
+    return out
+
+
+def measure_bpp(mpc_recorded, stage1, launches, max_err):
+    """Time `bpp_lcp` on the inputs the MPC path gave it (whole cascades: the
+    stage-1 call with work and the three regularized calls after it, whose
+    masks are empty when stage 1 solved everything) and on the step's
+    recorded stage-1 problems, beside batched `lcp_bpp` + `_verify`, the plain
+    version and the bound."""
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    picks = mpc_recorded[:32]
+    entry = {
+        "name": "bpp_lcp", "route": "cuda", "source": BPP_SOURCE,
+        "replaces": BPP_REPLACES, "launches": launches, "max_abs_err": max_err,
+        "library_ms": None,     # no single PyTorch call computes an LCP
+    }
+    main = time_bpp_on(picks, f"{len(picks)} of the MPC path's calls", hold=True)
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "batched_bpp_verify_ms"):
+        entry[key] = main[key]
+    entry["timed_on"] = (f"{len(picks)} of the MPC path's {launches} calls "
+                         f"(B={MPC_BATCH}, n={picks[0][0].shape[1]})")
+    work = [r for r in picks if bool(r[2].any())]
+    assert work, "mpc: no recorded call had a problem to solve"
+    entry["mpc_calls_with_work"] = time_bpp_on(
+        work, "the MPC calls with a non-empty mask", hold=True)
+    M0, q0, m0, z00, mb0 = work[0]
+    entry["device_ms"] = device_ms(
+        lambda: hopper_lcp.bpp_lcp(M0, q0, m0, z0=z00, max_bpp=mb0),
+        kernel="bpp_lcp_kernel")
+    if stage1:
+        s1 = [(M.contiguous(), q.contiguous(),
+               (mask if skip is None else mask & ~skip[:, None]).contiguous(),
+               None if z0 is None else z0.contiguous(), 24)
+              for (M, q, mask, z0, skip) in stage1]
+        entry["step_stage1_problems"] = time_bpp_on(
+            s1, f"{len(s1)} of the step's stage-1 problems "
+                f"(n in {sorted({r[0].shape[1] for r in s1})})")
+    return entry
+
 
 
 def measure_kernel(recorded, launches, max_err):
@@ -529,11 +1035,11 @@ def measure_kernel(recorded, launches, max_err):
     # monotone batch pivots to its solution (float32, cold)
     M, q = monotone(BATCH, 66, 1, torch.float32)
     full = torch.ones(BATCH, 66, dtype=torch.bool, device=DEVICE)
+    work_dev = device_ms(lambda: hopper_lcp.ppm_lcp(M, q, full), reps=5)
     _, _, piv, sizes = hopper_lcp.ppm_lcp_plain(M, q, full, with_pivots=True)
     work_ms = time_cuda(lambda: hopper_lcp.ppm_lcp(M, q, full), 10)
     work_plain = time_cuda(lambda: hopper_lcp.ppm_lcp_plain(M, q, full), 1, warmup=0)
     wb, wwhich = bound_ms(M, full, None, piv, sizes)
-    work_dev = device_ms(lambda: hopper_lcp.ppm_lcp(M, q, full), reps=5)
     return {
         "name": "ppm_lcp", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
@@ -579,17 +1085,30 @@ def main():
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
-    phase_build()          # every later phase needs the library
+    phase_build()          # every later phase needs the libraries
     max_err = phase_kernels() if "kernels" in phases else None
-    launches, recorded, rate = (phase_step() if "step" in phases
-                                else (0, [], None))
+    bpp_err = phase_kernels_bpp() if "kernels" in phases else None
+    launches, recorded, rate, stage1 = (phase_step() if "step" in phases
+                                        else (0, [], None, []))
     if "parity" in phases:
         phase_parity()
+    mpc_launches, mpc_recorded, mpc_rate = (phase_mpc() if "mpc" in phases
+                                            else (0, [], None))
+    if "mpcparity" in phases:
+        phase_mpc_parity()
     full_run = set(phases) == set(PHASES)
+    entries = []
     if recorded:
-        entry = measure_kernel(recorded, launches, max_err)
-        log(json.dumps({"kernels": [entry]}))
-    log(f"[done] {time.time() - t_start:.1f} s; scenario-steps/s at B={BATCH}: {rate}")
+        entries.append(measure_kernel(recorded, launches, max_err))
+    if mpc_recorded:
+        entries.append(measure_bpp(mpc_recorded, stage1, mpc_launches, bpp_err))
+    if full_run:
+        assert len(entries) == 2 and all(e["launches"] > 0 for e in entries), (
+            "a kernel of the main paths was never launched")
+    if entries:
+        log(json.dumps({"kernels": entries}))
+    log(f"[done] {time.time() - t_start:.1f} s; scenario-steps/s at B={BATCH}: {rate}; "
+        f"MPC solves/s at B={MPC_BATCH}: {mpc_rate}")
     log(card)
     if not full_run:
         log(f"partial run (phases: {phases}): no result line")

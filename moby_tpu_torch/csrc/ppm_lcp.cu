@@ -30,71 +30,17 @@
 // so a singular sub-solve that poisons z stalls the pivoting and the problem
 // comes back with done = 0, exactly as in the plain version.
 //
+// The shared-memory layout, the masked Gauss–Jordan, the first-minimum
+// reduction and the pivot loop are in lcp_common.cuh, shared with bpp_lcp.cu.
+//
 // Plain C interface (no PyTorch headers): built by nvcc into a shared library
 // and loaded with ctypes by moby_tpu_torch/solvers/hopper_lcp.py.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "lcp_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-template <typename T> struct Lim;
-template <> struct Lim<float> {
-  static __device__ __forceinline__ float eps() { return 1.1920928955078125e-07f; }
-  static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
-  static __device__ __forceinline__ float nan() { return CUDART_NAN_F; }
-};
-template <> struct Lim<double> {
-  static __device__ __forceinline__ double eps() { return 2.220446049250313e-16; }
-  static __device__ __forceinline__ double inf() { return CUDART_INF; }
-  static __device__ __forceinline__ double nan() { return CUDART_NAN; }
-};
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// First minimum of v[i] over the slots with sel[i] != 0, i < np: the least
-// value and, among equal minima, the LOWEST index (np when nothing is
-// selected). Called by all 32 lanes of one warp; every lane gets the result.
-// NaN-propagating: if a selected value is NaN the minimum is NaN and no index
-// is selected.
-template <typename T>
-__device__ __forceinline__ void first_min_warp(const T* v, const int* sel,
-                                               int np, T& mn, int& idx) {
-  const int lane = threadIdx.x & 31;
-  T best = Lim<T>::inf();
-  int bi = np;
-  bool has_nan = false;
-  for (int i = lane; i < np; i += 32) {
-    if (sel[i]) {
-      const T x = v[i];
-      if (x != x) has_nan = true;
-      else if (x < best || (x == best && i < bi)) { best = x; bi = i; }
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const T ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-    if (ob < best || (ob == best && oi < bi)) { best = ob; bi = oi; }
-  }
-  if (__any_sync(0xffffffffu, has_nan)) { best = Lim<T>::nan(); bi = np; }
-  mn = best;
-  idx = bi;
-}
-
-template <typename T>
-__host__ __device__ constexpr size_t smem_bytes(int np) {
-  // Mp (np x np), A (np x (np+1)), qv, zv, wv (np each); valid, nb, bas (int)
-  return (size_t)(2 * np * np + 4 * np) * sizeof(T) + (size_t)3 * np * sizeof(int);
-}
+using namespace lcp;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -104,15 +50,7 @@ ppm_lcp_kernel(const T* __restrict__ Mg, const T* __restrict__ qg,
                unsigned char* __restrict__ okg,
                int n, int np, int max_piv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = np + 1;
-  T* Mp = reinterpret_cast<T*>(smem_raw);
-  T* A = Mp + np * np;
-  T* qv = A + np * ld;
-  T* zv = qv + np;
-  T* wv = zv + np;
-  int* valid = reinterpret_cast<int*>(wv + np);
-  int* nb = valid + np;
-  int* bas = nb + np;
+  const Smem<T> s(smem_raw, np);
   __shared__ T s_mn;
   __shared__ int s_idx;
   __shared__ int s_done;
@@ -121,20 +59,9 @@ ppm_lcp_kernel(const T* __restrict__ Mg, const T* __restrict__ qg,
   const int lane = tid & 31;
   const int wid = tid >> 5;
   const size_t prob = blockIdx.x;
-  const T* M = Mg + prob * n * n;
-  const T* q = qg + prob * n;
-  const unsigned char* mask = maskg + prob * n;
   T* z = zg + prob * n;
 
-  // ---- active slots; padded and masked-out slots are inert (M_ii=1, q_i=1)
-  for (int i = tid; i < np; i += kThreads) {
-    const int v = (i < n) && (mask[i] != 0);
-    valid[i] = v;
-    qv[i] = v ? q[i] : T(1);
-  }
-  __syncthreads();
-  int m_active = 0;
-  for (int i = 0; i < np; ++i) m_active += valid[i];
+  const int m_active = load_active(s, qg + prob * n, maskg + prob * n, n);
   if (m_active == 0) {
     // min over an empty set is +inf > -ztol: trivial. This is the early exit
     // the cascade relies on for problems that an earlier stage solved.
@@ -142,33 +69,13 @@ ppm_lcp_kernel(const T* __restrict__ Mg, const T* __restrict__ qg,
     if (tid == 0) okg[prob] = 1;
     return;
   }
-
-  // ---- Mp = masked, padded M; row sums of |M| over the active submatrix
-  for (int i = wid; i < np; i += kWarps) {
-    T rs = T(0);
-    for (int j = lane; j < np; j += 32) {
-      T a;
-      if (valid[i] && valid[j]) a = M[(size_t)i * n + j];
-      else a = (i == j && !valid[j]) ? T(1) : T(0);
-      Mp[i * np + j] = a;
-      if (valid[i] && valid[j]) rs += fabs(a);
-    }
-    rs = warp_sum(rs);
-    if (lane == 0) wv[i] = valid[i] ? rs : T(0);
-  }
-  __syncthreads();
-  T norminf = T(0);
-  for (int i = 0; i < np; ++i) {
-    const T r = wv[i];
-    if (r != r || r > norminf) norminf = r;   // NaN-propagating max
-  }
+  const T norminf = load_matrix(s, Mg + prob * n * n, n);
   const T ztol = T(m_active) * norminf * Lim<T>::eps();
-  __syncthreads();   // wv is reused below
 
   // ---- start basis: the first minimum of q, or the warm start's support
   if (wid == 0) {
     T mn; int idx;
-    first_min_warp(qv, valid, np, mn, idx);
+    first_min_warp(s.qv, s.valid, np, mn, idx);
     if (lane == 0) { s_mn = mn; s_idx = idx; }
   }
   __syncthreads();
@@ -183,90 +90,21 @@ ppm_lcp_kernel(const T* __restrict__ Mg, const T* __restrict__ qg,
   int warm_any = 0;
   for (int i = tid; i < np; i += kThreads) {
     int wm = 0;
-    if (z0g != nullptr && i < n && valid[i])
+    if (z0g != nullptr && i < n && s.valid[i])
       wm = fabs(z0g[prob * n + i]) >= ztol;
-    bas[i] = wm;          // scratch: warm support
+    s.bas[i] = wm;          // scratch: warm support
     warm_any |= wm;
   }
   warm_any = __syncthreads_or(warm_any);
   for (int i = tid; i < np; i += kThreads)
-    nb[i] = warm_any ? bas[i] : (i == idx0);
-  if (tid == 0) s_done = 0;
+    s.nb[i] = warm_any ? s.bas[i] : (i == idx0);
   __syncthreads();
 
   // ---- pivot loop: this block's own pivot count
-  int done = 0;
-  for (int piv = 0; piv < max_piv && !done; ++piv) {
-    // working system: M on nonbasic x nonbasic, identity elsewhere; the
-    // right-hand side -q on the nonbasic rows is column np
-    for (int i = wid; i < np; i += kWarps) {
-      const int nbi = nb[i];
-      for (int j = lane; j < np; j += 32) {
-        const int nbj = nb[j];
-        A[i * ld + j] = (nbi && nbj) ? Mp[i * np + j]
-                                      : ((i == j && !nbj) ? T(1) : T(0));
-      }
-      if (lane == 0) A[i * ld + np] = nbi ? -qv[i] : T(0);
-    }
-    __syncthreads();
-
-    // Gauss–Jordan. A step whose |pivot| <= 1e-30 is skipped and leaves the
-    // system as it was. Basic rows and pivots are identity rows: their steps
-    // change nothing that z depends on, so they are not visited.
-    for (int k = 0; k < np; ++k) {
-      if (!nb[k]) continue;
-      const T pivot = A[k * ld + k];
-      if (!(fabs(pivot) > T(1e-30))) continue;
-      const T inv = T(1) / pivot;
-      for (int j = k + 1 + tid; j <= np; j += kThreads) A[k * ld + j] *= inv;
-      __syncthreads();
-      for (int i = wid; i < np; i += kWarps) {
-        if (i == k || !nb[i]) continue;
-        const T f = A[i * ld + k];
-        for (int j = k + 1 + lane; j <= np; j += 32)
-          A[i * ld + j] -= f * A[k * ld + j];
-      }
-      __syncthreads();
-    }
-
-    for (int i = tid; i < np; i += kThreads) {
-      zv[i] = nb[i] ? A[i * ld + np] : T(0);
-      bas[i] = valid[i] && !nb[i];
-    }
-    __syncthreads();
-    // w = M z + q on the basic rows
-    for (int i = wid; i < np; i += kWarps) {
-      T s = T(0);
-      if (bas[i]) {
-        for (int j = lane; j < np; j += 32) s += Mp[i * np + j] * zv[j];
-        s = warp_sum(s);
-      }
-      if (lane == 0) wv[i] = bas[i] ? s + qv[i] : T(0);
-    }
-    __syncthreads();
-    if (wid == 0) {
-      T minw, minz; int wi, zi;
-      first_min_warp(wv, bas, np, minw, wi);
-      first_min_warp(zv, nb, np, minz, zi);
-      if (lane == 0) {
-        const bool w_ok = minw > -ztol;
-        const bool z_neg = minz < -ztol;
-        const bool solved = w_ok && !z_neg;
-        if (!solved) {
-          // add the first index with w < -ztol, drop the first with
-          // z < -ztol; possibly both in one iteration
-          if (!w_ok && wi < np) nb[wi] = 1;
-          if (z_neg && zi < np) nb[zi] = 0;
-        }
-        s_done = solved ? 1 : 0;
-      }
-    }
-    __syncthreads();
-    done = s_done;
-  }
+  const int done = ppm_pivot_loop(s, ztol, max_piv, &s_done);
 
   for (int i = tid; i < n; i += kThreads)
-    z[i] = (done && valid[i]) ? zv[i] : T(0);
+    z[i] = (done && s.valid[i]) ? s.zv[i] : T(0);
   if (tid == 0) okg[prob] = done ? 1 : 0;
 }
 
@@ -304,8 +142,8 @@ extern "C" int ppm_lcp_f64(const void* M, const void* q, const void* mask,
 
 // Dynamic shared memory one block needs, for elements of `elem_size` bytes.
 extern "C" long long ppm_lcp_smem_bytes(int np, int elem_size) {
-  return (long long)(elem_size == 8 ? smem_bytes<double>(np)
-                                    : smem_bytes<float>(np));
+  return (long long)(elem_size == 8 ? lcp::smem_bytes<double>(np)
+                                    : lcp::smem_bytes<float>(np));
 }
 
 extern "C" const char* ppm_lcp_error_string(int code) {

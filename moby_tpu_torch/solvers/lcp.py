@@ -29,7 +29,9 @@ cascade); a CPU tensor takes the plain cascade. ``cascade="accel"`` on a CPU
 tensor forces the accelerated cascade with the kernel's plain version in its
 place (tests). The ``_plain`` cascades are the JAX package's ``_xla`` ones.
 Masked sub-solves use Gauss–Jordan on float32 and `torch.linalg.solve` on
-float64 (`_use_gj`). The JAX package's opt-in working-set compaction
+float64 (`_use_gj`); `gj_invert_masked` and `gj_invert_pd` are the explicit
+inverses of the same elimination, for the IFT pullback of `difflcp` and the
+Riccati sweep of `mpc.ilqr`. The JAX package's opt-in working-set compaction
 (`bpp_compact_cap`, off by default) is not carried: its default is ported.
 """
 
@@ -121,30 +123,30 @@ def gj_solve_masked(A, b, active):
     return b, ok
 
 
-def _gj_invert_small(D):
-    """(E, minpiv) for a small (…, bs, bs) block: unpivoted Gauss–Jordan
-    with the same vanishing-pivot skip as `gj_solve_masked` (skipped rows of
-    E are zero), carrying the identity."""
-    bs = D.shape[-1]
-    tiny = _tiny(D.dtype)
-    D = D.clone()
-    E = torch.eye(bs, dtype=D.dtype, device=D.device).expand(D.shape).clone()
-    minpiv = torch.full(D.shape[:-2], torch.inf, dtype=D.dtype, device=D.device)
-    for k in range(bs):
-        prow = D[..., k, :]
+def _gj_invert(A, signed: bool):
+    """Unpivoted Gauss–Jordan inverse of (…, n, n) systems, carrying the
+    identity through the row operations; a vanishing pivot zeroes its row,
+    as in `gj_solve_masked`. Returns (Ainv, minpiv): the least |pivot|, or
+    the least signed pivot with `signed`."""
+    n = A.shape[-1]
+    tiny = _tiny(A.dtype)
+    A = A.clone()
+    E = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    minpiv = torch.full(A.shape[:-2], torch.inf, dtype=A.dtype, device=A.device)
+    for k in range(n):
+        prow = A[..., k, :]
         erow = E[..., k, :]
         piv = prow[..., k]
-        apiv = piv.abs()
-        minpiv = torch.minimum(minpiv, apiv)
-        good = apiv > tiny
+        minpiv = torch.minimum(minpiv, piv if signed else piv.abs())
+        good = piv.abs() > tiny
         inv = torch.where(good, 1.0 / torch.where(good, piv, 1.0), 0.0)
         prow = prow * inv[..., None]
         erow = erow * inv[..., None]
-        factor = D[..., :, k].clone()
+        factor = A[..., :, k].clone()
         factor[..., k] = 0.0
-        D -= factor[..., None] * prow[..., None, :]
+        A -= factor[..., None] * prow[..., None, :]
         E -= factor[..., None] * erow[..., None, :]
-        D[..., k, :] = prow
+        A[..., k, :] = prow
         E[..., k, :] = erow
     return E, minpiv
 
@@ -166,7 +168,7 @@ def gj_solve_masked_blocked(A, b, active, bs: int = _GJ_BLOCK):
     minpiv = torch.full(b.shape[:-1], torch.inf, dtype=A.dtype, device=A.device)
     for s in range(0, n, bs):
         e = min(s + bs, n)
-        E, mp = _gj_invert_small(A[..., s:e, s:e])
+        E, mp = _gj_invert(A[..., s:e, s:e], signed=False)
         minpiv = torch.minimum(minpiv, mp)
         R = E @ A[..., s:e, :]                      # transformed panel rows
         bJ = (E @ b[..., s:e, None])[..., 0]
@@ -179,6 +181,29 @@ def gj_solve_masked_blocked(A, b, active, bs: int = _GJ_BLOCK):
         b[..., s:e] = bJ
     ok = (minpiv > tiny) & torch.isfinite(b).all(dim=-1)
     return b, ok
+
+
+def gj_invert_masked(A, active):
+    """Invert the `active`-masked system (identity rows/cols on inactive
+    slots) by the same unpivoted Gauss–Jordan as `gj_solve_masked`.
+
+    Costs about two `gj_solve_masked` and serves many right-hand sides: the
+    IFT pullback of `difflcp`, where every output row of a step Jacobian is
+    one matvec against the same principal inverse. Returns (Ainv, ok)."""
+    E, minpiv = _gj_invert(A, signed=False)
+    ok = (minpiv > _tiny(A.dtype)) & torch.isfinite(E).all(dim=-1).all(dim=-1)
+    return E, ok
+
+
+def gj_invert_pd(A):
+    """Batched inverse of symmetric matrices by unpivoted Gauss–Jordan with
+    a positive-definiteness check: a symmetric matrix is PD iff every
+    natural-order elimination pivot is positive (the Cholesky criterion).
+    The float32 route of the Riccati sweep's Quu solve. Returns
+    (Ainv, pd_ok)."""
+    E, minpiv = _gj_invert(A, signed=True)
+    ok = (minpiv > _tiny(A.dtype)) & torch.isfinite(E).all(dim=-1).all(dim=-1)
+    return E, ok
 
 
 def _use_gj(dtype):

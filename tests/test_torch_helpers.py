@@ -155,3 +155,47 @@ def make_kkt(B, nv, ni, seed=0, dtype=np.float64):
     q = np.concatenate(
         [rng.normal(size=(B, nv)), np.abs(rng.normal(size=(B, ni)))], axis=1)
     return M.astype(dtype), q.astype(dtype)
+
+
+def ballpush_both(B, seed=0, spread=0.1, dtype=torch.float64):
+    """The ball-push MPC task of the repo's benchmark on both sides: the
+    scene and state compiled by the JAX package and loaded into the port, B
+    scenarios with a numpy-made x jitter of the ball in [-spread, spread).
+    Returns (jscene, jstate, jbatched, tscene, tstate, tbatched, dx)."""
+    jscene, jstate = build_ballpush(jsc).compile()
+    tscene, tstate = torch_scene_state(jscene, jstate, dtype)
+    dx = np.random.default_rng(seed).uniform(size=B) * 2 * spread - spread
+    jb = jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x, (B,) + x.shape), jstate)
+    jb = jb.replace(pos=jb.pos.at[:, 0, 0].add(jnp.asarray(dx)))
+    tb = tstate.expand(B)
+    pos = tb.pos.clone()
+    pos[:, 0, 0] += torch.as_tensor(dx, dtype=pos.dtype)
+    return jscene, jstate, jb, tscene, tstate, tb.replace(pos=pos), dx
+
+
+def ballpush_costs(target=(0.4, 0.0)):
+    """(jax cost, jax cost_final, torch cost, torch cost_final): the
+    benchmark's costs; the JAX pair takes one scenario, the port's a batch."""
+    tj = jnp.asarray(target)
+
+    def jcost(x, u):
+        return 1e-4 * jnp.sum(u[:6] ** 2)
+
+    def jfinal(x):
+        return 50.0 * jnp.sum((x[0:2] - tj) ** 2)
+
+    def tcost(x, u):
+        return 1e-4 * (u[:, :6] ** 2).sum(dim=1)
+
+    def tfinal(x):
+        tt = torch.as_tensor(target, dtype=x.dtype, device=x.device)
+        return 50.0 * ((x[:, 0:2] - tt) ** 2).sum(dim=1)
+
+    return jcost, jfinal, tcost, tfinal
+
+
+def ilqr_arrays(res):
+    """An ILQRResult of either package as numpy arrays (us, xs, cost)."""
+    conv = t2n if isinstance(res.cost, torch.Tensor) else np.asarray
+    return conv(res.us), conv(res.xs), conv(res.cost)

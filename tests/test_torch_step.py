@@ -148,7 +148,7 @@ def test_import_pulls_in_neither_jax_nor_triton():
         "bad = [m for m in ('jax', 'jaxlib', 'flax', 'moby_tpu', 'triton', 'ctypes')\n"
         "       if m in sys.modules and m != 'ctypes']\n"
         "assert not bad, bad\n"
-        "assert hopper_lcp._lib is None\n"
+        "assert hopper_lcp._libs is None\n"
         "print('clean')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
