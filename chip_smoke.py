@@ -9,7 +9,9 @@ It needs no network and no JAX. Phases, each of which fails the run:
 
 1. device  — a CUDA device is present; prints its name and power limit.
 2. build   — compiles `moby_tpu_torch/csrc/ppm_lcp.cu` and `bpp_lcp.cu` with
-             nvcc (both at once) and loads them.
+             nvcc (both at once), loads them, and prints the registers,
+             static shared memory and spills of every kernel instantiation
+             (group path at G = 8, 16, 32 and block path, float and double).
 3. kernels — `hopper_lcp.ppm_lcp` against `ppm_lcp_plain` and
              `hopper_lcp.bpp_lcp` against `bpp_lcp_plain` on the card, float32
              and float64, at the contact step's shapes (n=66 and n=6, B=512)
@@ -20,6 +22,13 @@ It needs no network and no JAX. Phases, each of which fails the run:
              stage finishes, and a NaN-poisoned one. On the stack's own KKT
              problems, whose z is not unique, the contact impulses and the
              contact-space velocity change they cause are compared instead.
+             Then both kernels at every group width and its edges and on
+             the block path (n = 1, 6, 8, 13, 16, 17, 32, 33, 66 and 160 in
+             float32, 96 in float64), B=128: groups of one warp that finish
+             after 0, 1 and many iterations, partial masks and warm starts,
+             NaN in q, NaN in M with and without a check tolerance,
+             `max_bpp`=1, a singular problem (the tableau's fallback) and
+             chains longer than its refresh interval.
 4. step    — the full-width contact step: the 3-sphere friction+restitution
              stack (mu=0.5, eps=0.3, nk=16, so the impact LCP has n=66),
              float32, B=512 scenarios with per-scenario height jitter, 50
@@ -43,7 +52,8 @@ It needs no network and no JAX. Phases, each of which fails the run:
              route.
 
 Then each kernel is timed on the inputs the main paths really gave it,
-beside its plain version and its bound; `bpp_lcp` also beside the batched
+beside its plain version, its bound and its launch floor (the same call with
+an all-false mask); `bpp_lcp` also beside the batched
 `lcp_bpp` + `_verify` pair it stands for, on the MPC's inputs and on the
 step's recorded stage-1 problems. Output: a `{"kernels": [...]}` JSON line,
 the card's name and power limit, and as the last line
@@ -245,15 +255,51 @@ def phase_build():
     hopper_lcp._load()
     log(f"[build] nvcc -> {sorted(paths.values())} in {time.time() - t0:.1f} s")
     for line in hopper_lcp.build_log.splitlines():
-        if "registers" in line or "error" in line.lower() or "spill" in line:
+        if "error" in line.lower():
             log(f"[build] {line.strip()}")
+    for name, regs, smem, spills in ptxas_report(hopper_lcp.build_log):
+        log(f"[build] {name}: {regs} registers, {smem} bytes static shared memory, "
+            f"spill stores/loads {spills}")
+
+
+def ptxas_report(text):
+    """[(kernel, registers, static shared bytes, "stores/loads" spill bytes)]
+    for each kernel instantiation in `nvcc -Xptxas -v` output, with the names
+    demangled by c++filt where there is one."""
+    import re
+    import shutil
+
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = [m.group(1), None, None, None]
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur[3] = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[1] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur[2] = int(sm.group(1)) if sm else 0
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for r, d in zip(rows, out):
+            r[0] = d.replace("(anonymous namespace)::", "").split("(")[0] or r[0]
+    assert rows, "build: nvcc printed no kernel properties (-Xptxas -v)"
+    return [tuple(r) for r in rows]
 
 
 def both_versions(name, M, q, mask, z0, verify=True, solver="ppm", **kw):
     """Kernel and plain version on one batch: (zk, dk, zp, dp, pivots), after
     checking that the kernel's z is finite and (with `verify`) that every
     problem either version calls done satisfies complementarity. `solver` is
-    "ppm" or "bpp"; `kw` goes to both versions (max_bpp, max_piv). For "bpp"
+    "ppm" or "bpp"; `kw` goes to both versions (max_bpp, max_piv, check_tol). For "bpp"
     `pivots` counts block iterations and PPM pivots together."""
     from moby_tpu_torch.solvers import hopper_lcp, lcp
 
@@ -451,6 +497,101 @@ def phase_kernels_bpp():
                               None, solver="bpp", max_bpp=12)
         assert nd == BATCH
         worst = max(worst, e)
+    return worst
+
+
+def edge_case(kernel, name, M, q, mask, z0=None, verify=True, **kw):
+    """Kernel against plain version on one batch (`both_versions`, solver
+    "ppm" or "bpp"): `ok`/`done` equal and z within TOL. Returns
+    (max_abs_err, ok (B,), pivots (B,))."""
+    label = f"{kernel} {name}"
+    zk, okk, zp, okp, piv = both_versions(label, M, q, mask, z0, verify,
+                                          solver=kernel, **kw)
+    n_diff = int((okk != okp).sum())
+    assert n_diff == 0, f"{label}: ok differs on {n_diff} of {len(okk)} problems"
+    scale = max(1.0, float(zp.abs().max()))
+    err = float((zk - zp).abs().max())
+    assert err <= TOL[M.dtype] * scale, (
+        f"{label}: max|z_kernel - z_plain| = {err:.3e} > {TOL[M.dtype]:.0e}*{scale:.3g}")
+    log(f"[kernels] {label:44s} {str(M.dtype)[6:]:8s} B={M.shape[0]} n={M.shape[1]} "
+        f"ok={int(okk.sum())}/{len(okk)} pivots={int(piv.sum())} (max {int(piv.max())}) "
+        f"max_abs_err={err:.3e}")
+    return err, okk, piv
+
+
+def phase_kernels_edges():
+    """Both kernels against their plain versions at every group width and its
+    edges (n = 1, 6, 8, 13, 16, 17, 32) and on the block path (n = 33, 66,
+    and 160 in float32, 96 in float64), float32 and float64: a batch in which
+    the groups of one warp finish after 0 (all-false mask), 0 (q > 0), 1
+    (warm from the solution) and many (cold) iterations; a partial mask with
+    a warm start that is not a solution; NaN in q; NaN in M with and, for
+    `bpp_lcp`, without a check tolerance; `max_bpp`=1; a singular problem,
+    whose zero pivot sends the block path's pivot loop to its fresh
+    Gauss–Jordan. Cold chains at n >= 66 take more than kRefresh = 16 pivots,
+    so the tableau is rebuilt on its way. Returns the largest error."""
+    from moby_tpu_torch.solvers import hopper_lcp, lcp
+
+    worst = 0.0
+    B = 128
+    for dtype in (torch.float32, torch.float64):
+        big = 160 if dtype == torch.float32 else 96
+        for n in (1, 6, 8, 13, 16, 17, 32, 33, 66, big):
+            M, q = monotone(B, n, 5 + n, dtype)
+            full = torch.ones(B, n, dtype=torch.bool, device=DEVICE)
+            zc, _ = hopper_lcp.ppm_lcp_plain(M, q, full)
+            # groups of one warp leave after 0, 0, 1 and many iterations
+            mixed = full.clone()
+            mixed[0::4] = False
+            qm = q.clone()
+            qm[1::4] = q[1::4].abs() + 0.1
+            z0 = torch.zeros_like(q)
+            z0[2::4] = zc[2::4]
+            rng = np.random.default_rng(n)
+            part = torch.tensor(rng.uniform(size=(B, n)) < 0.7, device=DEVICE)
+            garbage = torch.tensor(np.abs(rng.normal(size=(B, n))), dtype=dtype,
+                                   device=DEVICE)
+            garbage[:, ::2] = 0.0
+            qn = -q.abs()
+            qn[0::2, n // 2] = float("nan")
+            Mn = M.clone()
+            Mn[1::2, 0, n - 1] = float("nan")
+            Mp, _ = lcp.pad_lcp(Mn, q, full)
+            tol_n = lcp._check_tol(Mp, full).contiguous()
+            for kernel, kw in (("ppm", {}), ("bpp", {"max_bpp": 12})):
+                tag = f"n={n}"
+                e, ok, piv = edge_case(kernel, f"mixed warp 0/0/1/many {tag}", M, qm,
+                                       mixed, z0, **kw)
+                assert bool(ok.all()) and int(piv[0::4].max()) == 0
+                if n >= 66 and kernel == "ppm":
+                    assert int(piv[3::4].max()) > 16, "no chain long enough to refresh"
+                worst = max(worst, e)
+                e, ok, _ = edge_case(kernel, f"partial mask, warm garbage {tag}", M, q,
+                                     part, garbage, **kw)
+                worst = max(worst, e)
+                e, ok, _ = edge_case(kernel, f"NaN in q {tag}", M, qn, full,
+                                     verify=False, **kw)
+                # (n=1: the only q is NaN, the start set is empty: trivial)
+                assert not bool(ok[0::2].any()) or (kernel == "bpp" and n == 1)
+                e, ok, _ = edge_case(kernel, f"NaN in M {tag}", Mn, q, full,
+                                     verify=False, **kw)
+                assert bool(ok[1::2].all() if kernel == "bpp" else not ok[1::2].any())
+                if kernel == "bpp":
+                    e, ok, _ = edge_case(kernel, f"NaN in M, check_tol {tag}", Mn, q,
+                                         full, verify=False, check_tol=tol_n, **kw)
+                    assert not bool(ok[1::2].any()) and bool(ok[0::2].all())
+                    e, ok, _ = edge_case(kernel, f"max_bpp=1 (PPM stage) {tag}", M, q,
+                                         full, max_bpp=1)
+                    worst = max(worst, e)
+                if n > 2:
+                    Ms, qs = M.clone(), q.clone()
+                    Ms[:, 2, :] = 0.0
+                    Ms[:, :, 2] = 0.0
+                    qs[:, 2] = -1.0
+                    qs[0::2, 2] = -50.0   # the cold start pivots on it first
+                    e, _, _ = edge_case(kernel, f"singular (zero pivot) {tag}", Ms, qs,
+                                        full, verify=False, **kw)
+                    worst = max(worst, e)
     return worst
 
 
@@ -698,7 +839,7 @@ def phase_mpc():
     handed = 0
     wrapper, sweep = hopper_lcp.bpp_lcp, lcp.lcp_fast_regularized
 
-    def recording(M, q, mask, z0=None, max_bpp=24, max_piv=None):
+    def recording(M, q, mask, z0=None, max_bpp=24, max_piv=None, check_tol=None):
         nonlocal handed
         pos = counts["calls"] % 4
         counts["calls"] += 1
@@ -706,8 +847,9 @@ def phase_mpc():
         # whole cascades, every 25th of them
         if mask.shape[0] == B and ((counts["calls"] - 1) // 4) % 25 == 0 \
                 and len(recorded) < 64:
-            recorded.append((M, q, mask, z0, max_bpp))
-        z, ok = wrapper(M, q, mask, z0=z0, max_bpp=max_bpp, max_piv=max_piv)
+            recorded.append((M, q, mask, z0, max_bpp, check_tol))
+        z, ok = wrapper(M, q, mask, z0=z0, max_bpp=max_bpp, max_piv=max_piv,
+                        check_tol=check_tol)
         work = mask.any(dim=1)
         if pos == 0:
             tally["empty"] += (~work).sum()
@@ -857,7 +999,7 @@ def bound_ms(M, mask, z0, pivots, nb_sizes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, reps=20, kernel="ppm_lcp_kernel"):
+def device_ms(fn, reps=20, kernel="ppm_lcp_"):
     """Mean device time of the named kernel alone over `reps` calls of fn, from
     torch.profiler's kernel records (the wrapper's host work and its mask
     conversion are left out). The card's kernel records can reach the
@@ -909,19 +1051,20 @@ def bpp_bound_ms(M, mask, z0, solves, nb_sizes):
     return (t, "bytes") if t >= ops + check else (ops + check, "operations")
 
 
-def batched_pair(M, q, mask, z0, skip, max_iters):
+def batched_pair(M, q, mask, z0, skip, max_iters, tol=None):
     """The batched `lcp_bpp` + `_verify` pair that one `bpp_lcp` launch stands
-    for, as the cascades run it."""
+    for, as the cascades run it (at `tol`, else the tolerance of M)."""
     from moby_tpu_torch.solvers import lcp
 
     Mp, qp = lcp.pad_lcp(M, q, mask)
-    tol = lcp._check_tol(Mp, mask)
+    if tol is None:
+        tol = lcp._check_tol(Mp, mask)
     z, ok = lcp.lcp_bpp(M, q, mask, z0=z0, skip=skip, max_iters=max_iters)
     return z, ok & lcp._verify(Mp, qp, z, mask, tol)
 
 
 def time_bpp_on(picks, label, hold=False):
-    """Mean ms over `picks` [(M, q, mask, z0, max_bpp)] of the kernel's wrapper
+    """Mean ms over `picks` [(M, q, mask, z0, max_bpp, check_tol)] of the kernel's wrapper
     call, the batched pair on the same problems (skip = empty mask), the plain
     version, and the bound; also how far kernel and pair agree. With `hold`
     the kernel must agree with its plain version (ok, and z within TOL) and
@@ -931,12 +1074,12 @@ def time_bpp_on(picks, label, hold=False):
     ms = pair_ms = plain_ms = bnd = err = 0.0
     by = {"bytes": 0, "operations": 0}
     solves = agree = total = 0
-    for (M, q, mask, z0, max_bpp) in picks:
+    for (M, q, mask, z0, max_bpp, tol) in picks:
         skip = ~mask.any(dim=1)
         zp, okp, its, piv, sizes = hopper_lcp.bpp_lcp_plain(
-            M, q, mask, z0=z0, max_bpp=max_bpp, with_pivots=True)
-        zk, okk = hopper_lcp.bpp_lcp(M, q, mask, z0=z0, max_bpp=max_bpp)
-        _, okb = batched_pair(M, q, mask, z0, skip, max_bpp)
+            M, q, mask, z0=z0, max_bpp=max_bpp, check_tol=tol, with_pivots=True)
+        zk, okk = hopper_lcp.bpp_lcp(M, q, mask, z0=z0, max_bpp=max_bpp, check_tol=tol)
+        _, okb = batched_pair(M, q, mask, z0, skip, max_bpp, tol)
         agree += int((okk == (okb | skip)).sum())
         total += len(okk)
         if hold:
@@ -951,10 +1094,13 @@ def time_bpp_on(picks, label, hold=False):
             assert err <= TOL[M.dtype], (
                 f"{label}: max|z_kernel - z_plain| = {err:.3e} of scale {scale:.3g}")
         solves += int((its + piv).sum())
-        ms += time_cuda(lambda: hopper_lcp.bpp_lcp(M, q, mask, z0=z0, max_bpp=max_bpp), 20)
-        pair_ms += time_cuda(lambda: batched_pair(M, q, mask, z0, skip, max_bpp), 3, warmup=1)
+        ms += time_cuda(lambda: hopper_lcp.bpp_lcp(M, q, mask, z0=z0, max_bpp=max_bpp,
+                                                   check_tol=tol), 20)
+        pair_ms += time_cuda(lambda: batched_pair(M, q, mask, z0, skip, max_bpp, tol), 3,
+                             warmup=1)
         plain_ms += time_cuda(
-            lambda: hopper_lcp.bpp_lcp_plain(M, q, mask, z0=z0, max_bpp=max_bpp), 2, warmup=1)
+            lambda: hopper_lcp.bpp_lcp_plain(M, q, mask, z0=z0, max_bpp=max_bpp,
+                                             check_tol=tol), 2, warmup=1)
         b, which = bpp_bound_ms(M, mask, z0, its + piv, sizes)
         bnd += b
         by[which] += 1
@@ -992,14 +1138,27 @@ def measure_bpp(mpc_recorded, stage1, launches, max_err):
     assert work, "mpc: no recorded call had a problem to solve"
     entry["mpc_calls_with_work"] = time_bpp_on(
         work, "the MPC calls with a non-empty mask", hold=True)
-    M0, q0, m0, z00, mb0 = work[0]
+    M0, q0, m0, z00, mb0, t0 = work[0]
     entry["device_ms"] = device_ms(
-        lambda: hopper_lcp.bpp_lcp(M0, q0, m0, z0=z00, max_bpp=mb0),
-        kernel="bpp_lcp_kernel")
+        lambda: hopper_lcp.bpp_lcp(M0, q0, m0, z0=z00, max_bpp=mb0, check_tol=t0),
+        kernel="bpp_lcp_")
+    # the launch floor: the same call with an all-false mask, every group
+    # leaves after reading its mask
+    none = torch.zeros_like(m0)
+    entry["launch_floor"] = {
+        "shape": f"B={m0.shape[0]} n={m0.shape[1]} all-false mask",
+        "device_ms": device_ms(
+            lambda: hopper_lcp.bpp_lcp(M0, q0, none, z0=z00, max_bpp=mb0, check_tol=t0),
+            kernel="bpp_lcp_"),
+        "bound_ms": bound_ms(M0, none, None, torch.zeros(len(m0), device=DEVICE),
+                             torch.zeros((0, len(m0)), device=DEVICE))[0],
+    }
+    log(f"[timing] bpp_lcp on a call with work: {entry['device_ms']} ms on the device; "
+        f"launch floor {entry['launch_floor']}")
     if stage1:
         s1 = [(M.contiguous(), q.contiguous(),
                (mask if skip is None else mask & ~skip[:, None]).contiguous(),
-               None if z0 is None else z0.contiguous(), 24)
+               None if z0 is None else z0.contiguous(), 24, None)
               for (M, q, mask, z0, skip) in stage1]
         entry["step_stage1_problems"] = time_bpp_on(
             s1, f"{len(s1)} of the step's stage-1 problems "
@@ -1031,6 +1190,18 @@ def measure_kernel(recorded, launches, max_err):
     k = len(picks)
     M0, q0, mask0, z00 = next(r for r in picks if r[0].shape[1] == 66)
     main_dev = device_ms(lambda: hopper_lcp.ppm_lcp(M0, q0, mask0, z0=z00))
+    # the launch floor at each of the main path's shapes: an all-false mask
+    # (what every call of the main path had so far)
+    floor = {}
+    for nn in sorted({r[0].shape[1] for r in picks}):
+        Mf, qf, mf, zf = next(r for r in picks if r[0].shape[1] == nn)
+        none = torch.zeros_like(mf)
+        floor[f"B={mf.shape[0]} n={nn}"] = {
+            "device_ms": device_ms(lambda: hopper_lcp.ppm_lcp(Mf, qf, none, z0=zf)),
+            "bound_ms": bound_ms(Mf, none, None, torch.zeros(len(mf), device=DEVICE),
+                                 torch.zeros((0, len(mf)), device=DEVICE))[0],
+        }
+    log(f"[timing] ppm_lcp launch floor (all-false mask): {floor}")
     # the same kernel doing real work: every problem of a B=512, n=66
     # monotone batch pivots to its solution (float32, cold)
     M, q = monotone(BATCH, 66, 1, torch.float32)
@@ -1050,7 +1221,7 @@ def measure_kernel(recorded, launches, max_err):
         # ms is the wrapper call as the main path pays for it (host work,
         # mask conversion and launch); device_ms is the kernel alone on one of
         # the main path's n=66 calls, from the profiler
-        "device_ms": main_dev,
+        "device_ms": main_dev, "launch_floor": floor,
         "timed_on": f"{k} of the main path's {len(recorded)} calls", "shapes": shapes,
         "full_work_case": {
             "shape": "B=512 n=66 float32 monotone, full mask, cold",
@@ -1088,6 +1259,9 @@ def main():
     phase_build()          # every later phase needs the libraries
     max_err = phase_kernels() if "kernels" in phases else None
     bpp_err = phase_kernels_bpp() if "kernels" in phases else None
+    if "kernels" in phases:
+        edge_err = phase_kernels_edges()
+        max_err, bpp_err = max(max_err, edge_err), max(bpp_err, edge_err)
     launches, recorded, rate, stage1 = (phase_step() if "step" in phases
                                         else (0, [], None, []))
     if "parity" in phases:

@@ -308,13 +308,14 @@ def _mpc_forward(M, q, mask, z0, skip, options: MPCOptions = DEFAULT_OPTIONS):
     kernel = _use_kernel(M, options)
 
     def bpp_pair(Mx, qx, skip_x):
-        """One verified block-pivoting solve of (Mx, qx), skipping skip_x."""
+        """One verified block-pivoting solve of (Mx, qx), skipping skip_x,
+        checked at the tolerance of M (not of Mx) on both routes."""
         if kernel:
             m_eff = mask & ~skip_x[:, None]
             z_, ok_ = hopper_lcp.bpp_lcp(
                 Mx.contiguous(), qx.contiguous(), m_eff,
                 None if z0 is None else z0.contiguous(),
-                max_bpp=options.bpp_iters)
+                max_bpp=options.bpp_iters, check_tol=check_tol.contiguous())
             return z_, ok_ & ~skip_x
         z_, ok_ = lcp_mod.lcp_bpp(Mx, qx, mask, z0=z0, skip=skip_x,
                                   max_iters=options.bpp_iters)

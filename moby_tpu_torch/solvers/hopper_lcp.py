@@ -11,17 +11,29 @@ whole "batched BPP loop + `_verify`" pair; the contact-MPC cascade
 (`difflcp._mpc_forward`) launches it for every such pair.
 
 Both kernels are CUDA C++ (`csrc/ppm_lcp.cu`, `csrc/bpp_lcp.cu`, shared
-device code in `csrc/lcp_common.cuh`), one thread block per problem, built by
-`nvcc` for sm_90a at first use into ``moby_tpu_torch/build/`` (one `nvcc` per
-source, started together) and loaded with `ctypes`; importing this module
-builds and loads nothing.
+device code in `csrc/lcp_common.cuh`), float and double, built by `nvcc` for
+sm_90a at first use into ``moby_tpu_torch/build/`` (one `nvcc` per source,
+started together) and loaded with `ctypes`; importing this module builds and
+loads nothing.
 
-What bounds them on the card: the serial depth of the pivot chain (each pivot
-is up to n dependent Gauss–Jordan steps, two block barriers each), not bytes
-or operations. The design answers with one block per problem (each runs its
-own pivot count, solved problems leave at once), the whole problem resident
-in shared memory, and elimination restricted to the nonbasic rows and the
-columns right of the pivot. See the notes at the head of the CUDA sources.
+What bounds them on the card is the serial depth of the pivot chain, not
+bytes or operations. `launch_plan` picks one of two paths from n and the
+dtype alone (no option, no fallback on failure):
+
+* n <= 32, the group path: a problem is a group of G lanes of one warp (G
+  the smallest of 8, 16, 32 that is >= n), lane i holds row i of the system
+  in registers, eliminations broadcast rows with warp shuffles and the index
+  sets are G-bit masks; no block barrier anywhere. Two warps a block.
+* n > 32, the block path: one block of 256 threads per problem, the whole
+  problem in shared memory. The PPM pivot loop keeps the principal pivot
+  transform (Tucker's tableau) of [M | q] for the current nonbasic set and
+  updates it by one rank-one update per entering or leaving index; it
+  re-solves from M every `_REFRESH` updates, before it returns done, and
+  on a pivot of magnitude <= 1e-30. The block stage of `bpp_lcp`
+  re-solves each iteration with a one-barrier-per-step Gauss–Jordan.
+
+See the notes at the head of the CUDA sources. `_ppm_tableau_plain` is the
+block path's pivot loop in batched PyTorch, for the tests.
 
 `ppm_lcp_plain` and `bpp_lcp_plain` are the same functions in batched
 PyTorch. The CPU tests and the on-card comparison use them; a wrapper takes
@@ -54,6 +66,12 @@ unless finished and not trivial (:498-499); `ok = (finished and checked) or
 trivial` (:507-516). A NaN iterate has no violator (comparisons with NaN are
 false), so the block stage calls itself finished and only the check's
 NaN-propagating minima give ok=0.
+
+A caller's `check_tol` (B,) replaces the check's own tolerance, and then an
+empty start set is checked too (z = 0, so w = M·0 + q): `ok` is exactly
+"batched `lcp_bpp`, then `_verify` at `check_tol`", and a NaN in M or in
+`check_tol` gives ok=0. An all-false mask stays ok=1, as `_verify` over an
+empty mask does. Without it the Pallas body's semantics above hold.
 """
 
 from __future__ import annotations
@@ -62,6 +80,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -109,6 +128,41 @@ def smem_bytes(n: int, dtype) -> int:
     np_ = padded_size(n)
     size = 8 if cfg.torch_dtype(dtype) == torch.float64 else 4
     return (2 * np_ * np_ + 4 * np_) * size + 3 * np_ * 4
+
+
+# group widths of the n <= 32 path and the threads of one of its blocks:
+# `kGroupThreads` in csrc/lcp_common.cuh
+GROUP_WIDTHS = (8, 16, 32)
+GROUP_THREADS = 64
+# tableau updates of the n > 32 PPM pivot loop between two re-solves from M:
+# `kRefresh`
+_REFRESH = 16
+
+
+class LaunchPlan(NamedTuple):
+    """How a batch of B problems of size n is launched.
+
+    path: "group" (n <= 32: G lanes of a warp per problem) or "block" (one
+    block per problem, 256 threads); group: G, 0 on the block path;
+    per_block: problems a block holds; grid: blocks; smem: dynamic shared
+    memory of a block in bytes."""
+
+    path: str
+    group: int
+    per_block: int
+    grid: int
+    smem: int
+
+
+def launch_plan(n: int, dtype, B: int) -> LaunchPlan:
+    """The launch of both kernels, chosen from n and the dtype alone. The
+    wrappers pass these values to the kernels, which check them."""
+    n = int(n)
+    if n <= GROUP_WIDTHS[-1]:
+        g = next(w for w in GROUP_WIDTHS if w >= n)
+        per_block = GROUP_THREADS // g
+        return LaunchPlan("group", g, per_block, -(-int(B) // per_block), 0)
+    return LaunchPlan("block", 0, 1, int(B), smem_bytes(n, dtype))
 
 
 def fits(n: int, dtype) -> bool:
@@ -172,12 +226,13 @@ def _load() -> dict:
         libs = {}
         for name in KERNELS:
             lib = ctypes.CDLL(paths[name])
-            # ppm: (M, q, mask, z0, z, ok, B, n, np, max_piv, stream);
-            # bpp has max_bpp before max_piv
-            n_int = 4 if name == "ppm_lcp" else 5
+            # ppm: (M, q, mask, z0, z, ok, B, n, np, max_piv, group,
+            # per_block, grid, smem, stream); bpp has the check tolerance
+            # after z0 and max_bpp before max_piv
+            n_ptr, n_int = (6, 8) if name == "ppm_lcp" else (7, 9)
             for suffix in ("_f32", "_f64"):
                 fn = getattr(lib, name + suffix)
-                fn.argtypes = [ptr] * 6 + [i32] * n_int + [ptr]
+                fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 fn.restype = i32
             smem = getattr(lib, name + "_smem_bytes")
             smem.argtypes = [i32, i32]
@@ -195,7 +250,7 @@ def _load() -> dict:
     return _libs
 
 
-def _check_inputs(who, M, q, mask, z0):
+def _check_inputs(who, M, q, mask, z0, check_tol=None):
     """Raise on what the kernels do not take; returns (B, n)."""
     if M.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {M.device}")
@@ -214,9 +269,16 @@ def _check_inputs(who, M, q, mask, z0):
             raise ValueError(f"{who}: {name} is on {t.device}, M on {M.device}")
         if name != "mask" and t.dtype != M.dtype:
             raise TypeError(f"{who}: {name} is {t.dtype}, M is {M.dtype}")
+    if check_tol is not None:
+        if tuple(check_tol.shape) != (B,):
+            raise ValueError(
+                f"{who}: check_tol must be ({B},), got {tuple(check_tol.shape)}")
+        if check_tol.device != M.device or check_tol.dtype != M.dtype:
+            raise TypeError(f"{who}: check_tol must be {M.dtype} on {M.device}")
     if mask.dtype != torch.bool:
         raise TypeError(f"{who}: mask must be bool, got {mask.dtype}")
-    for name, t in (("M", M), ("q", q), ("mask", mask), ("z0", z0)):
+    for name, t in (("M", M), ("q", q), ("mask", mask), ("z0", z0),
+                    ("check_tol", check_tol)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous")
     if not fits(n, M.dtype):
@@ -226,8 +288,10 @@ def _check_inputs(who, M, q, mask, z0):
     return B, n
 
 
-def _launch(who, M, q, mask, z0, ints):
-    """Launch kernel `who` on the current stream; returns (z, ok)."""
+def _launch(who, M, q, mask, z0, ints, tol=()):
+    """Launch kernel `who` on the current stream with the plan of
+    `launch_plan`; `tol` is () for ppm_lcp, (check_tol or None,) for
+    bpp_lcp. Returns (z, ok)."""
     B, n = q.shape
     lib = _load()[who]
     z = torch.empty_like(q)
@@ -236,12 +300,15 @@ def _launch(who, M, q, mask, z0, ints):
     if B == 0 or n == 0:
         return z.zero_(), ok.fill_(True)
     fn = getattr(lib, who + ("_f32" if M.dtype == torch.float32 else "_f64"))
+    plan = launch_plan(n, M.dtype, B)
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(M.data_ptr(), q.data_ptr(), mask.data_ptr(),
                 None if z0 is None else z0.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in tol),
                 z.data_ptr(), ok.data_ptr(), B, n, padded_size(n),
-                *(int(i) for i in ints), stream)
+                *(int(i) for i in ints), plan.group, plan.per_block,
+                plan.grid, plan.smem, stream)
     if rc != 0:
         msg = getattr(lib, who + "_error_string")(rc).decode()
         raise RuntimeError(
@@ -391,15 +458,158 @@ def ppm_lcp_plain(M, q, mask, z0=None, max_piv=None, with_pivots=False):
     return z_out, done
 
 
-def bpp_lcp(M, q, mask, z0=None, max_bpp=24, max_piv=None):
+def _principal_pivot_plain(T, r, do):
+    """One principal pivot of the tableaux T (B, n, n+1) on index r (B,),
+    where `do`: T_rr -> 1/T_rr, row r -> -T_rj/T_rr, column r -> T_ir/T_rr,
+    the rest T_ij - T_ir·(T_rj/T_rr). Returns (T, tiny): where |T_rr| <=
+    1e-30 the tableau stays as it was and `tiny` is set."""
+    B = T.shape[0]
+    b = torch.arange(B, device=T.device)
+    row = T[b, r, :]
+    col = T[b, :, r]
+    p = row[b, r]
+    tiny = do & ~(p.abs() > 1e-30)
+    go = do & ~tiny
+    inv = 1.0 / torch.where(go, p, 1.0)
+    rowp = -(row * inv[:, None])
+    new = T + col[:, :, None] * rowp[:, None, :]
+    new[b, r, :] = rowp
+    new[b, :, r] = col * inv[:, None]
+    new[b, r, r] = inv
+    return torch.where(go[:, None, None], new, T), tiny
+
+
+def _build_tableau_plain(Mp, qv, nonbas, do):
+    """The principal pivot transform of [Mp | qv] on the nonbasic set, one
+    pivot per index in ascending order, where `do`. Returns (T, built):
+    `built` is False where a pivot was tiny (the build stops there)."""
+    B, n = qv.shape
+    T = torch.cat([Mp, qv[:, :, None]], dim=2)
+    built = do.clone()
+    for k in range(n):
+        sel = built & nonbas[:, k]
+        if bool(sel.any()):
+            T, tiny = _principal_pivot_plain(
+                T, torch.full((B,), k, device=T.device), sel)
+            built = built & ~tiny
+    return T, built
+
+
+def _resolve_plain(Mp, qv, valid, nonbas, sel):
+    """z and w = Mp z + qv (on the basic rows) of a fresh solve from Mp."""
+    steps = torch.nonzero((nonbas & sel[:, None]).any(dim=0))[:, 0].tolist()
+    z = _solve_masked_plain(Mp, qv, nonbas, steps)
+    bas = valid & ~nonbas
+    return z, torch.where(bas, (Mp @ z[..., None])[..., 0] + qv, 0.0)
+
+
+def _ppm_decide(z, w, nonbas, bas, ztol, arange):
+    """One pivot rule step: (solved, next nonbasic set)."""
+    n = z.shape[1]
+    wmask, minw = _first_min(w, bas, arange, n)
+    zmask, minz = _first_min(z, nonbas, arange, n)
+    w_ok = minw > -ztol
+    z_neg = minz < -ztol
+    nonbas2 = (nonbas | (wmask & ~w_ok[:, None])) & ~(zmask & z_neg[:, None])
+    return w_ok & ~z_neg, nonbas2
+
+
+def _ppm_tableau_plain(M, q, mask, z0=None, max_piv=None, refresh=_REFRESH):
+    """The pivot loop of the n > 32 path of both kernels, in batched
+    PyTorch, from `ppm_lcp`'s start: the same pivot rule as
+    `ppm_lcp_plain`, but z_F and w_B are read from the tableau of [M | q] on
+    the current nonbasic set, which each entering or leaving index updates
+    by one principal pivot. It is rebuilt from M when it is missing or has
+    taken `refresh` updates, and after a pivot whose magnitude is <= 1e-30
+    (a build that meets one falls back to `ppm_lcp_plain`'s Gauss–Jordan
+    for that iteration); a "solved" read from an updated tableau is checked
+    again on a fresh solve. For the tests only: nothing calls it.
+
+    -> (z, done, pivots (B,), stats): stats counts, over the batch, the
+    tableau builds, the builds that met a tiny pivot, the rank-one updates
+    and the fresh re-checks of a "solved"."""
+    B, n = q.shape
+    if max_piv is None:
+        max_piv = 2 * n + 8
+    valid = mask
+    Mp, qv, norminf, m_active, arange = _problem_plain(M, q, mask)
+    ztol = m_active * norminf * cfg.eps(M.dtype)
+    start_mask, minq = _first_min(qv, valid, arange, n)
+    trivial = minq > -ztol
+    nonbas = start_mask & ~trivial[:, None]
+    if z0 is not None:
+        warm = (z0.abs() >= ztol[:, None]) & valid
+        nonbas = torch.where(warm.any(dim=1)[:, None], warm, nonbas)
+
+    T = torch.zeros(B, n, n + 1, dtype=M.dtype, device=M.device)
+    tab_ok = torch.zeros(B, dtype=torch.bool, device=M.device)
+    since = torch.zeros(B, dtype=torch.int64, device=M.device)
+    z = torch.zeros_like(q)
+    done = trivial.clone()
+    pivots = torch.zeros(B, dtype=torch.int64, device=M.device)
+    stats = {"builds": 0, "tiny_builds": 0, "updates": 0, "rechecks": 0}
+    for _ in range(max_piv):
+        active = ~done
+        if not bool(active.any()):
+            break
+        need = active & (~tab_ok | (since >= refresh))
+        if bool(need.any()):
+            Tn, built = _build_tableau_plain(Mp, qv, nonbas, need)
+            T = torch.where(need[:, None, None], Tn, T)
+            tab_ok = torch.where(need, built, tab_ok)
+            since = torch.where(need, 0, since)
+            stats["builds"] += int(need.sum())
+            stats["tiny_builds"] += int((need & ~built).sum())
+        bas = valid & ~nonbas
+        t = T[:, :, n]
+        zc = torch.where(nonbas, t, 0.0)
+        wc = torch.where(bas, t, 0.0)
+        gj = active & ~tab_ok
+        if bool(gj.any()):
+            zg, wg = _resolve_plain(Mp, qv, valid, nonbas, gj)
+            zc = torch.where(gj[:, None], zg, zc)
+            wc = torch.where(gj[:, None], wg, wc)
+        solved, nonbas2 = _ppm_decide(zc, wc, nonbas, bas, ztol, arange)
+        recheck = active & solved & ~need
+        if bool(recheck.any()):
+            stats["rechecks"] += int(recheck.sum())
+            zg, wg = _resolve_plain(Mp, qv, valid, nonbas, recheck)
+            solved_f, nonbas2_f = _ppm_decide(zg, wg, nonbas, bas, ztol, arange)
+            zc = torch.where(recheck[:, None], zg, zc)
+            solved = torch.where(recheck, solved_f, solved)
+            nonbas2 = torch.where(recheck[:, None], nonbas2_f, nonbas2)
+            # the fresh check disagreed: pivot on from a rebuilt tableau
+            tab_ok = tab_ok & ~(recheck & ~solved_f)
+        upd = active & ~solved
+        ut = upd & tab_ok
+        for idx in (nonbas2 & ~nonbas, nonbas & ~nonbas2):   # enter, then leave
+            has = ut & idx.any(dim=1)
+            if bool(has.any()):
+                T, tiny = _principal_pivot_plain(T, idx.to(torch.int8).argmax(dim=1), has)
+                stats["updates"] += int((has & ~tiny).sum())
+                since = since + (has & ~tiny)
+                tab_ok = tab_ok & ~tiny
+                ut = ut & ~tiny
+        nonbas = torch.where(upd[:, None], nonbas2, nonbas)
+        z = torch.where(active[:, None], zc, z)
+        done = done | (active & solved)
+        pivots += active
+    z_out = torch.where(valid & (~trivial & done)[:, None], z, 0.0)
+    return z_out, done, pivots, stats
+
+
+def bpp_lcp(M, q, mask, z0=None, max_bpp=24, max_piv=None, check_tol=None):
     """Solve B LCPs by block principal pivoting, then principal pivoting from
     its last basis, then the complementarity check.
 
-    M (B, n, n), q (B, n), mask (B, n) bool, z0 (B, n) or None (cold start)
-    -> (z (B, n), ok (B,) bool). `ok` is verified: the problem finished and
-    z satisfies z >= -tol, w >= -tol, |z w| <= tol with tol = m·‖M‖∞·sqrt(eps)
-    on the active slots, or there was nothing to do (an empty start set,
-    which includes an all-false mask). z is zero unless the problem finished.
+    M (B, n, n), q (B, n), mask (B, n) bool, z0 (B, n) or None (cold start),
+    check_tol (B,) of M's dtype or None -> (z (B, n), ok (B,) bool). `ok` is
+    verified: the problem finished and z satisfies z >= -tol, w >= -tol,
+    |z w| <= tol on the active slots, or there was nothing to do (an empty
+    start set, which includes an all-false mask). tol is `check_tol` where
+    given, else m·‖M‖∞·sqrt(eps); with `check_tol` an empty start set is
+    checked too (z = 0), and only an all-false mask is ok unchecked. z is
+    zero unless the problem finished.
 
     A CPU tensor goes to `bpp_lcp_plain`. A CUDA tensor launches the kernel
     on the current stream (no synchronisation) or raises: on a wrong dtype,
@@ -408,11 +618,12 @@ def bpp_lcp(M, q, mask, z0=None, max_bpp=24, max_piv=None):
     kernel launches.
     """
     if M.device.type == "cpu":
-        return bpp_lcp_plain(M, q, mask, z0=z0, max_bpp=max_bpp, max_piv=max_piv)
-    _, n = _check_inputs("bpp_lcp", M, q, mask, z0)
+        return bpp_lcp_plain(M, q, mask, z0=z0, max_bpp=max_bpp, max_piv=max_piv,
+                             check_tol=check_tol)
+    _, n = _check_inputs("bpp_lcp", M, q, mask, z0, check_tol)
     if max_piv is None:
         max_piv = 2 * n + 8
-    z, ok = _launch("bpp_lcp", M, q, mask, z0, (max_bpp, max_piv))
+    z, ok = _launch("bpp_lcp", M, q, mask, z0, (max_bpp, max_piv), (check_tol,))
     if z.numel():
         bpp_lcp.launches += 1
     return z, ok
@@ -427,9 +638,9 @@ _P_BUDGET = 3
 
 
 def bpp_lcp_plain(M, q, mask, z0=None, max_bpp=24, max_piv=None,
-                  with_pivots=False):
-    """`bpp_lcp` in batched PyTorch: the same three stages as loops of masked
-    batched iterations. Works on any device; nothing on the card's main path
+                  check_tol=None, with_pivots=False):
+    """`bpp_lcp` in batched PyTorch, `check_tol` included: the same three
+    stages as loops of masked batched iterations. Works on any device; nothing on the card's main path
     calls it. `with_pivots` adds (iters (B,), pivots (B,), sizes (P, B)): the
     block iterations and the PPM pivots each problem took and the size of the
     nonbasic system of every solve it made (block iterations first), 0 where
@@ -441,7 +652,7 @@ def bpp_lcp_plain(M, q, mask, z0=None, max_bpp=24, max_piv=None,
     valid = mask
     Mp, qv, norminf, m_active, arange = _problem_plain(M, q, mask)
     ztol = m_active * norminf * cfg.eps(dtype)
-    check_tol = m_active * norminf * (cfg.eps(dtype) ** 0.5)
+    auto_tol = m_active * norminf * (cfg.eps(dtype) ** 0.5)
 
     cold = (qv < -ztol[:, None]) & valid
     if z0 is None:
@@ -492,13 +703,17 @@ def bpp_lcp_plain(M, q, mask, z0=None, max_bpp=24, max_piv=None,
     z_out = torch.where(valid & (~trivial & done)[:, None], z_out, 0.0)
 
     # ---- stage 3: the check (NaN-propagating minima, as jnp.min)
-    tol = check_tol
+    tol = auto_tol if check_tol is None else check_tol
     w_all = torch.where(valid, (Mp @ z_out[..., None])[..., 0] + qv, 0.0)
     zw = z_out * w_all
     ver = ((torch.where(valid, z_out, 0.0).amin(dim=1) >= -tol)
            & (torch.where(valid, w_all, 0.0).amin(dim=1) >= -tol)
            & (torch.where(valid, zw, 0.0).abs().amax(dim=1) <= tol))
-    ok = (done & ver) | trivial
+    if check_tol is None:
+        ok = (done & ver) | trivial
+    else:
+        # the empty start set is checked too (z = 0); an all-false mask is ok
+        ok = ((done | trivial) & ver) | ~valid.any(dim=1)
     if with_pivots:
         all_sizes = torch.cat(
             [torch.stack(sizes) if sizes else iters.new_zeros((0, B)), ppm_sizes])
