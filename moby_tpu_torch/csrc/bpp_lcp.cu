@@ -156,7 +156,7 @@ bpp_lcp_block(const T* __restrict__ Mg, const T* __restrict__ qg,
               T* __restrict__ zg, unsigned char* __restrict__ okg,
               int n, int np, int max_bpp, int max_piv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s(smem_raw, np);
+  const Smem<T> s(smem_raw, n, np);
   __shared__ int s_ninf;
   __shared__ int s_first;
   __shared__ PivotShared<T> sh;

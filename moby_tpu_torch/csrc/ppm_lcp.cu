@@ -23,8 +23,9 @@
 //     with M in shared memory. The pivot loop keeps the principal pivot
 //     transform (Tucker's tableau) of [M | q] on F in the working matrix and
 //     reads z_F and w_B from its last column: an entering or a leaving index
-//     is one principal pivot, a rank-one update of the whole np x (np+1)
-//     tableau (one copy of the pivot row and column, one update pass),
+//     is one principal pivot, a rank-one update of the tableau's first n
+//     rows and columns and its last column (one copy of the pivot row and
+//     column, one update pass; the padding up to np is never read),
 //     instead of |F| dependent elimination steps with a barrier each. It
 //     re-solves from M every kRefresh = 16 updates (bounding the rounding the
 //     updates accumulate), before it returns done (the "solved" is checked
@@ -105,7 +106,7 @@ ppm_lcp_block(const T* __restrict__ Mg, const T* __restrict__ qg,
               const T* __restrict__ z0g, T* __restrict__ zg,
               unsigned char* __restrict__ okg, int n, int np, int max_piv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s(smem_raw, np);
+  const Smem<T> s(smem_raw, n, np);
   __shared__ T s_mn;
   __shared__ int s_idx;
   __shared__ PivotShared<T> sh;
