@@ -50,6 +50,25 @@ It needs no network and no JAX. Phases, each of which fails the run:
 7. mpcparity — the same task at B=8: card float32 through the kernel route
              against the port on the CPU in float64 through the batched
              route.
+8. art     — the articulated path at full width: the repo's
+             `scenes/fixed-articulated-table.xml` (a floating table of five
+             boxes on a plane, mu = inf: the no-slip model) loaded by
+             `io.mobyxml.load` on the card, float32, B=512 scenarios with
+             the spin ω_z drawn by numpy from `--seed` in [0.9, 1.1] rad/s,
+             2 warm-up steps then 30 of dt=1e-3 through `stepper.step`. Its
+             no-slip and stabilization LCPs (n = 40) reach `ppm_lcp`'s block
+             path. The counts are set to 0 just before and read just after;
+             it prints scenario-steps/s, the device's busy share and launches
+             a step, `ppm_lcp`'s launches and non-empty masks, where the
+             problems left `_solve_accel`, and the peak device memory. With
+             the kernels phase, `ppm_lcp` is then held against
+             `ppm_lcp_plain` on the problems this run recorded, float32 and
+             float64.
+9. artparity — card float32 against the port on the CPU in float64: the
+             table at B=4 over 200 steps (max |q_art| drift at 0.2 s below
+             5e-3), and the limited pendulum of the repo's articulated tests
+             (stop at 0.5 rad) from q=1 over 800 steps (min q above
+             0.5 - 1e-3, max |q| drift below 2e-2).
 
 Then each kernel is timed on the inputs the main paths really gave it,
 beside its plain version, its bound and its launch floor (the same call with
@@ -59,11 +78,13 @@ step's recorded stage-1 problems. Output: a `{"kernels": [...]}` JSON line,
 the card's name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device the script exits with a non-zero code and no result.
-`--phases kernels` or `--phases mpc` are the short runs (no result line).
+`--phases kernels`, `--phases mpc` or `--phases art` are the short runs (no
+result line).
 """
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -71,7 +92,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("device", "build", "kernels", "step", "parity", "mpc", "mpcparity")
+PHASES = ("device", "build", "kernels", "step", "parity", "mpc", "mpcparity",
+          "art", "artparity")
 BATCH = 512          # scenarios of the full-width step
 MPC_BATCH = 1536     # scenarios of the full-width contact-MPC solve
 MPC_HORIZON = 50     # steps of dt = MPC_DT in the MPC's horizon
@@ -85,6 +107,20 @@ STAGE1_KEEP = 16     # of the step's stage-1 problems kept for the timing
 MPC_PARITY_RTOL = 0.05
 STEPS = 50           # steps of the full-width run
 PARITY_STEPS = 200   # steps of the float32-card against float64-CPU run
+TABLE_XML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes",
+                         "fixed-articulated-table.xml")
+ART_BATCH = 512      # scenarios of the full-width articulated run
+# 30 timed steps, not 50: the new phases took the script past 8 minutes
+# (a table step is about 0.6-0.95 s on the host at B=512; PERF.md §5)
+ART_STEPS = 30
+ART_WARMUP = 2
+ART_DT = 1e-3        # the JAX package's on-device smoke step (tpu_smoke.py:146)
+ART_PARITY_BATCH = 4
+ART_PARITY_STEPS = 200
+ART_DRIFT_LIMIT = 5e-3      # max |q_art| drift at 0.2 s (tpu_smoke.py:154)
+PEND_STEPS = 800
+PEND_MIN_Q = 0.5 - 1e-3     # the JAX test's own bound (test_joint_limit_stops)
+PEND_DRIFT_LIMIT = 2e-2     # max |q| drift over the 800 steps
 SOURCE = "moby_tpu_torch/csrc/ppm_lcp.cu"
 REPLACES = "moby_tpu/solvers/pallas_lcp.py:226"   # ppm_lcp_one's pl.pallas_call
 BPP_SOURCE = "moby_tpu_torch/csrc/bpp_lcp.cu"
@@ -725,7 +761,7 @@ def phase_step():
     return launches, recorded, B * n_steps / elapsed, stage1
 
 
-def device_share(step_fn, step_seconds, n_steps=2):
+def device_share(step_fn, step_seconds, n_steps=2, tag="step"):
     """Where a step's time goes: the device time of `n_steps` more steps by
     kernel name (torch.profiler), against the unprofiled step time measured
     just before. A reading, not a check: prints "not measured" if the
@@ -740,13 +776,13 @@ def device_share(step_fn, step_seconds, n_steps=2):
             for ev in prof.key_averages() if ev.self_device_time_total > 0]
     busy = sum(r[1] for r in rows) / n_steps / 1e6
     if busy <= 0:
-        log("[step] device time per step: not measured (profiler saw no kernel)")
+        log(f"[{tag}] device time per step: not measured (profiler saw no kernel)")
         return
     n_kernels = sum(r[2] for r in rows) / n_steps
-    log(f"[step] device busy {busy * 1e3:.2f} ms of a {step_seconds * 1e3:.2f} ms step "
+    log(f"[{tag}] device busy {busy * 1e3:.2f} ms of a {step_seconds * 1e3:.2f} ms step "
         f"(idle share {1.0 - busy / step_seconds:.3f}), {n_kernels:.0f} kernel launches a step")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
-        log(f"[step]   {us / n_steps / 1e3:8.3f} ms/step {count / n_steps:8.0f} launches/step  {key[:90]}")
+        log(f"[{tag}]   {us / n_steps / 1e3:8.3f} ms/step {count / n_steps:8.0f} launches/step  {key[:90]}")
 
 
 # --------------------------------------------------------------------- MPC
@@ -972,6 +1008,346 @@ def phase_parity():
     assert z_drift < 5e-3, f"parity: float32 height drift {z_drift:.3e} m"
     assert same_order, "parity: stack order differs"
     return drift
+
+
+# ------------------------------------------------------------- articulated
+def table_states(device, B, seed, dtype=None):
+    """The repo's table scene loaded by the port's `mobyxml.load` on
+    `device`: B scenarios whose spin ω_z (the floating base's qd[2], 1.0 in
+    the scene) is drawn by numpy from `seed` in [0.9, 1.1] rad/s. Heights
+    are not jittered: the legs start in contact."""
+    from moby_tpu_torch.io import mobyxml
+
+    scene, st, _ = mobyxml.load(TABLE_XML, device=device, dtype=dtype)
+    wz = np.random.default_rng(seed).uniform(0.9, 1.1, size=B)
+    st = st.expand(B)
+    qd = st.qd_art.clone()
+    qd[:, 2] = torch.tensor(wz, dtype=qd.dtype, device=qd.device)
+    return scene, st.replace(qd_art=qd)
+
+
+def phase_art(seed):
+    """The articulated main path: ART_BATCH table scenarios through
+    `stepper.step` on the card. Returns what the timing and the kernel
+    checks need."""
+    from moby_tpu_torch.sim import noslip, stabilization, stepper
+    from moby_tpu_torch.solvers import hopper_lcp, lcp
+
+    B, n_steps = ART_BATCH, ART_STEPS
+    scene, st = table_states(DEVICE, B, seed)
+    n = scene.n_contacts + scene.n_limits
+    assert st.q_art.dtype == torch.float32 and scene.use_noslip and n == 40
+    plan = hopper_lcp.launch_plan(n, torch.float32, B)
+    for _ in range(ART_WARMUP):                       # not counted
+        st = stepper.step(scene, st, ART_DT, device=DEVICE)
+    torch.cuda.synchronize()
+
+    # stand-ins for the run: what the path hands the kernel and from which
+    # LCP, what enters `_solve_accel`, and where the problems leave it
+    # (device counters, read after the run)
+    recorded, entered_lcps = [], []
+    origin = {"lcp": "?"}
+    tally = {k: torch.zeros((), dtype=torch.int64, device=DEVICE)
+             for k in ("entered", "empty", "stage1", "stage2+3", "stage3", "failed")}
+    saved = (hopper_lcp.ppm_lcp, lcp._solve_accel, lcp._solve_fast_lemke_plain,
+             noslip.solve_noslip, stabilization.stabilize, lcp.solve_principal)
+    wrapper, accel, plain, solve_ns, stab, principal = saved
+    subsolves = []
+
+    def recording(M, q, mask, z0=None, max_piv=None):
+        recorded.append((origin["lcp"], M, q, mask, z0))
+        return wrapper(M, q, mask, z0=z0, max_piv=max_piv)
+
+    def recording_accel(M, q, mask, z0, skip, plain_fallback):
+        z, ok, stats = accel(M, q, mask, z0, skip, plain_fallback)
+        entered = ~lcp._no_skip(skip, q)
+        work = entered & mask.any(dim=1)
+        entered_lcps.append((origin["lcp"], M, q, mask & entered[:, None], z0))
+        tally["entered"] += entered.sum()
+        tally["empty"] += (entered & ~work).sum()
+        tally["stage1"] += (work & ~stats.fallback).sum()
+        tally["stage2+3"] += (work & stats.fallback & ok).sum()
+        tally["failed"] += (entered & ~ok).sum()
+        return z, ok, stats
+
+    def counting_principal(M, rhs, nonbas):
+        subsolves.append(M.shape)
+        return principal(M, rhs, nonbas)
+
+    def recording_plain(M, q, mask, z0=None, skip=None, with_stats=False):
+        out = plain(M, q, mask, z0, skip, with_stats)
+        tally["stage3"] += (out[1] & ~lcp._no_skip(skip, q)).sum()
+        return out
+
+    def tagged(name, fn):
+        def call(*a, **kw):
+            origin["lcp"] = name
+            out = fn(*a, **kw)
+            origin["lcp"] = "?"
+            return out
+        return call
+
+    # the wrapper counts on the function that `hopper_lcp.ppm_lcp` names, so
+    # the stand-in carries the count while it is in place
+    hopper_lcp.ppm_lcp = recording
+    lcp._solve_accel = recording_accel
+    lcp._solve_fast_lemke_plain = recording_plain
+    noslip.solve_noslip = tagged("noslip", solve_ns)
+    stabilization.stabilize = tagged("stabilization", stab)
+    lcp.solve_principal = counting_principal
+    recording.launches = 0
+    hopper_lcp.bpp_lcp.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    for _ in range(n_steps):
+        st = stepper.step(scene, st, ART_DT, device=DEVICE)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = recording.launches
+    (hopper_lcp.ppm_lcp, lcp._solve_accel, lcp._solve_fast_lemke_plain,
+     noslip.solve_noslip, stabilization.stabilize, lcp.solve_principal) = saved
+    peak = torch.cuda.max_memory_allocated()
+    assert hopper_lcp.bpp_lcp.launches == 0    # the step's cascade has no bpp_lcp stage
+
+    for name in ("q_art", "qd_art", "zlast"):
+        assert torch.isfinite(getattr(st, name)).all(), f"art: {name} not finite"
+    qa, qd = st.q_art.double(), st.qd_art.double()
+    slide = float(qa[:, :2].abs().max())
+    sink = float((qa[:, 2] - 1.05).abs().max())
+    speed = float(qd.abs().max())
+    log(f"[art] B={B} steps={n_steps} dt={ART_DT} float32 (table, n_lcp={n}): "
+        f"{elapsed:.2f} s, {B * n_steps / elapsed:.1f} scenario-steps/s, "
+        f"{n_steps / elapsed:.2f} batch-steps/s")
+    log(f"[art] at rest: base slid {slide:.3e} m, height off {sink:.3e} m, "
+        f"largest |qd| {speed:.3e}")
+    assert slide < 1e-3 and sink < 1e-3, "art: the table moved off its legs"
+    assert speed < 5e-2, "art: the table did not come to rest"
+    assert launches > 0, "art: the path never launched ppm_lcp"
+    assert len(recorded) == launches
+
+    nonempty = {"noslip": 0, "stabilization": 0}
+    handed = 0
+    for (who, _, _, m, _) in recorded:
+        nonempty[who] += int(m.any(dim=1).sum())
+        handed += m.shape[0]
+    stages = {k: int(v) for k, v in tally.items()}
+    stages["stage2"] = stages.pop("stage2+3") - stages["stage3"]
+    entered = stages.pop("entered")
+    assert sum(stages.values()) == entered, (stages, entered)
+    log(f"[art] ppm_lcp launches={launches} ({launches / n_steps:.2f} a step), "
+        f"problems handed to the kernel={handed}, with a non-empty mask="
+        f"{sum(nonempty.values())} ({nonempty}); n={n}, path={plan.path} "
+        f"(grid {plan.grid}, {plan.smem} bytes of shared memory a block)")
+    log(f"[art] LCP problems entering _solve_accel={entered}, leaving at: {stages}")
+    log(f"[art] peak device memory {peak / 2 ** 20:.1f} MiB, of which the run "
+        f"added {(peak - mem0) / 2 ** 20:.1f} MiB (its recorded LCPs included)")
+    device_share(lambda: stepper.step(scene, st, ART_DT, device=DEVICE),
+                 elapsed / n_steps, tag="art")
+    # the sub-solves of the pivoting LCP stages (Gauss–Jordan in float32):
+    # how many a step, and the launches and device time of one
+    _, Ms, qs, ms_, _ = recorded[0]
+    full = torch.ones_like(ms_)
+    k, us = launches_of(lambda: lcp.solve_principal(Ms, -qs, full))
+    log(f"[art] pivoting sub-solves (lcp.solve_principal, float32 Gauss-Jordan at "
+        f"B={B} n={n}): {len(subsolves) / n_steps:.1f} a step; one takes {k} "
+        f"kernel launches and {us / 1e3:.3f} ms of device time")
+    return {"launches": launches, "recorded": recorded, "entered": entered_lcps,
+            "rate": B * n_steps / elapsed, "nonempty": sum(nonempty.values()),
+            "stages": stages, "plan": plan, "peak_bytes": peak}
+
+
+def launches_of(fn):
+    """(kernel launches, device µs) of one call of fn, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0]
+    return sum(ev.count for ev in rows), sum(ev.self_device_time_total for ev in rows)
+
+
+def check_velocity_case(name, M, q, mask, z0):
+    """Kernel against plain version on the table's LCPs, whose z is not
+    unique (redundant contacts: the no-slip LCP is singular to working
+    precision, so pivot ties are decided by rounding and a chain that ends
+    done in one version can run into the pivot cap in the other): every
+    problem either version calls done satisfies complementarity, some
+    problem with work is done in both when either is done on one, and where
+    both are done the velocity change M·z they give agrees within
+    KKT_VELOCITY_TOL (M·z is unique for these symmetric PSD matrices).
+    Returns the velocity error."""
+    from moby_tpu_torch.solvers import lcp
+
+    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0)
+    n_diff = int((dk != dp).sum())
+    work = mask.any(dim=1)
+    both = dk & dp & work
+    assert bool(both.any()) or not bool(((dk | dp) & work).any()), (
+        f"{name}: no problem with work is done in both versions")
+    Mp, _ = lcp.pad_lcp(M, q, mask)
+    dv = torch.where(mask, (Mp @ (zk - zp)[..., None])[..., 0], 0.0)
+    err = float(dv[both].abs().max()) if bool(both.any()) else 0.0
+    scale = max(1.0, float(torch.where(mask, q, 0.0).abs().max()))
+    log(f"[kernels] {name:44s} {str(M.dtype)[6:]:8s} B={M.shape[0]} n={M.shape[1]} "
+        f"with work={int(mask.any(dim=1).sum())} done kernel={int(dk.sum())} "
+        f"plain={int(dp.sum())} differ={n_diff}: M·z err={err:.3e} (scale {scale:.3g})")
+    assert err <= KKT_VELOCITY_TOL[M.dtype] * scale, (
+        f"{name}: velocity change differs by {err:.3e}")
+    return err
+
+
+def phase_kernels_art(art):
+    """`ppm_lcp` against `ppm_lcp_plain` on the LCPs the table path recorded
+    (n = 40, the block path), float32 as recorded and float64: the calls as
+    the cascade handed them to the kernel, and the LCPs as they entered
+    `_solve_accel` (every problem with work, cold), by the velocity change;
+    the same LCPs made strictly monotone (+0.05·I on the active block) by z.
+    Returns the largest z error."""
+    handed = [r for r in art["recorded"] if bool(r[3].any())][:4]
+    full = [r for who in ("noslip", "stabilization")
+            for r in [r for r in art["entered"] if r[0] == who and bool(r[3].any())][:2]]
+    assert full, "art: no LCP with work entered the cascade"
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        def cast(t):
+            return None if t is None else t.to(dtype).contiguous()
+
+        for (who, M, q, mask, z0) in handed:
+            check_velocity_case(f"table {who} as handed", cast(M), cast(q),
+                                mask.contiguous(), cast(z0))
+        for (who, M, q, mask, z0) in full:
+            M, q, mask = cast(M), cast(q), mask.contiguous()
+            check_velocity_case(f"table {who} LCPs cold", M, q, mask, None)
+            Mr = (M + 0.05 * torch.diag_embed(mask.to(dtype))).contiguous()
+            e, _, _ = check_case(f"table {who} LCPs + 0.05 I cold", Mr, q, mask, None)
+            worst = max(worst, e)
+    return worst
+
+
+def pendulum_model(lo=None, hi=None):
+    """A 1 m rod of 1 kg on a revolute joint about z, hanging along -y at
+    q = 0, optionally limited to [lo, hi] (the repo's articulated tests'
+    pendulum)."""
+    from moby_tpu_torch.dynamics import model as mdl
+
+    j = mdl.JointDef(
+        jtype=mdl.REVOLUTE, Xt_E=np.eye(3), Xt_r=np.zeros(3),
+        axis=np.array([0.0, 0, 1]),
+        lo=None if lo is None else np.array([lo]),
+        hi=None if hi is None else np.array([hi]),
+    )
+    link = mdl.LinkDef(name="rod", mass=1.0, com=np.array([0.0, -0.5, 0.0]),
+                       inertia_com=np.diag([1.0 / 12, 1e-12, 1.0 / 12]), joint=j)
+    m = mdl.ArticulatedModel([link], floating=False)
+    m.set_parents([-1])
+    return m
+
+
+def limited_pendulum(device, B):
+    from moby_tpu_torch.core import scene as sc
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, -9.81, 0])
+    b.add_articulated("pend", pendulum_model(lo=0.5, hi=3.0), q0=np.array([1.0]))
+    scene, st = b.compile(device=device)
+    return scene, st.expand(B)
+
+
+def phase_art_parity(seed):
+    """Card float32 against the port on the CPU in float64 (plain cascade):
+    the table and the limited pendulum."""
+    from moby_tpu_torch.sim import stepper
+
+    B = ART_PARITY_BATCH
+    qa = {}
+    for device in (DEVICE, "cpu"):
+        scene, st = table_states(device, B, seed + 1)
+        _, (_, _, q) = stepper.rollout(scene, st, ART_DT, ART_PARITY_STEPS,
+                                       device=device)
+        qa[device] = q.double().cpu()
+    assert qa["cpu"].dtype == torch.float64 and torch.isfinite(qa[DEVICE]).all()
+    drift = (qa[DEVICE] - qa["cpu"]).abs().amax(dim=(1, 2))
+    d02 = float(drift[ART_PARITY_STEPS - 1])
+    log(f"[artparity] table B={B} steps={ART_PARITY_STEPS}: max |q_art| drift "
+        f"{d02:.3e} at 0.2 s (largest over the run {float(drift.max()):.3e}, at "
+        f"10 steps {float(drift[9]):.3e})")
+    assert d02 < ART_DRIFT_LIMIT, f"artparity: table drift {d02:.3e} at 0.2 s"
+
+    qp = {}
+    for device in (DEVICE, "cpu"):
+        scene, st = limited_pendulum(device, B)
+        _, (_, _, q) = stepper.rollout(scene, st, ART_DT, PEND_STEPS, device=device)
+        qp[device] = q.double().cpu()[..., 0]
+    assert torch.isfinite(qp[DEVICE]).all()
+    qmin = {d: float(v.min()) for d, v in qp.items()}
+    pdrift = float((qp[DEVICE] - qp["cpu"]).abs().max())
+    log(f"[artparity] limited pendulum B={B} steps={PEND_STEPS}: min q card "
+        f"{qmin[DEVICE]:.6f}, CPU {qmin['cpu']:.6f} (stop at 0.5), max |q| drift "
+        f"{pdrift:.3e}")
+    assert qmin[DEVICE] > PEND_MIN_Q and qmin["cpu"] > PEND_MIN_Q, (
+        f"artparity: the pendulum passed its stop ({qmin})")
+    assert qmin["cpu"] < 0.52, "artparity: the pendulum never reached its stop"
+    assert pdrift < PEND_DRIFT_LIMIT, f"artparity: pendulum drift {pdrift:.3e}"
+    return d02, pdrift
+
+
+def measure_art_kernel(art):
+    """`ppm_lcp` on the table path's own calls: the calls with a non-empty
+    mask (all of them if none had one), timed beside the plain version and
+    the bound, the kernel alone from the profiler; and the same kernel on
+    the LCPs as they entered `_solve_accel` (every problem with work, cold)."""
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    def timed(calls, label):
+        ms = plain_ms = bnd = 0.0
+        by = {"bytes": 0, "operations": 0}
+        pivots = 0
+        for (_, M, q, mask, z0) in calls:
+            _, _, piv, sizes = hopper_lcp.ppm_lcp_plain(M, q, mask, z0=z0,
+                                                        with_pivots=True)
+            pivots += int(piv.sum())
+            ms += time_cuda(lambda: hopper_lcp.ppm_lcp(M, q, mask, z0=z0), 20)
+            plain_ms += time_cuda(
+                lambda: hopper_lcp.ppm_lcp_plain(M, q, mask, z0=z0), 2, warmup=1)
+            b, which = bound_ms(M, mask, z0, piv, sizes)
+            bnd += b
+            by[which] += 1
+        _, M0, q0, m0, z00 = calls[0]
+        k = len(calls)
+        out = {"calls": k, "problems_with_work": sum(int(c[3].any(dim=1).sum()) for c in calls),
+               "pivots": pivots, "ms": ms / k, "plain_ms": plain_ms / k,
+               "bound_ms": bnd / k, "bound_by": max(by, key=by.get),
+               "device_ms": device_ms(lambda: hopper_lcp.ppm_lcp(M0, q0, m0, z0=z00))}
+        log(f"[timing] ppm_lcp on {label}: {out}")
+        return out
+
+    with_work = [r for r in art["recorded"] if bool(r[3].any())]
+    picks = (with_work or art["recorded"])[:8]
+    entry = {
+        "launches": art["launches"], "launches_per_step": art["launches"] / ART_STEPS,
+        "problems_with_work": art["nonempty"], "n": picks[0][1].shape[1],
+        "path": art["plan"].path, "stages": art["stages"],
+        "scenario_steps_per_s": art["rate"],
+        "timed_on": timed(picks, f"{len(picks)} of the table path's calls"
+                                 + (" with work" if with_work else " (none had work)")),
+    }
+    none = torch.zeros_like(picks[0][3])
+    _, Mf, qf, _, zf = picks[0]
+    entry["launch_floor"] = {
+        "shape": f"B={none.shape[0]} n={none.shape[1]} all-false mask",
+        "device_ms": device_ms(lambda: hopper_lcp.ppm_lcp(Mf, qf, none, z0=zf)),
+        "bound_ms": bound_ms(Mf, none, None, torch.zeros(len(none), device=DEVICE),
+                             torch.zeros((0, len(none)), device=DEVICE))[0],
+    }
+    full = [r for r in art["entered"] if bool(r[3].any())][:4]
+    entry["entered_lcps_cold"] = timed(
+        [(w, M, q, m, None) for (w, M, q, m, _) in full],
+        f"{len(full)} of the LCPs that entered the cascade, every problem with work, cold")
+    return entry
 
 
 def bound_ms(M, mask, z0, pivots, nb_sizes):
@@ -1238,6 +1614,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES))
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the articulated phases' per-scenario spin")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1256,33 +1634,65 @@ def main():
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
+    t_phase = [time.time()]
+
+    def lap(name):
+        now = time.time()
+        log(f"[time] {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     phase_build()          # every later phase needs the libraries
+    lap("build")
     max_err = phase_kernels() if "kernels" in phases else None
     bpp_err = phase_kernels_bpp() if "kernels" in phases else None
     if "kernels" in phases:
         edge_err = phase_kernels_edges()
         max_err, bpp_err = max(max_err, edge_err), max(bpp_err, edge_err)
+        lap("kernels")
     launches, recorded, rate, stage1 = (phase_step() if "step" in phases
                                         else (0, [], None, []))
     if "parity" in phases:
         phase_parity()
+    lap("step, parity")
     mpc_launches, mpc_recorded, mpc_rate = (phase_mpc() if "mpc" in phases
                                             else (0, [], None))
     if "mpcparity" in phases:
         phase_mpc_parity()
+    lap("mpc, mpcparity")
+    art = phase_art(args.seed) if "art" in phases else None
+    lap("art")
+    if "artparity" in phases:
+        phase_art_parity(args.seed)
+        lap("artparity")
+    if art is not None and "kernels" in phases:
+        art_err = phase_kernels_art(art)
+        max_err = max(max_err, art_err)
+        lap("kernels on the table's LCPs")
     full_run = set(phases) == set(PHASES)
     entries = []
+    table_path = measure_art_kernel(art) if art is not None else None
     if recorded:
-        entries.append(measure_kernel(recorded, launches, max_err))
+        entry = measure_kernel(recorded, launches, max_err)
+        if table_path is not None:
+            # the step's and the table's runs, each counted from 0
+            entry["launches_by_path"] = {"step": launches, "table": art["launches"]}
+            entry["launches"] = launches + art["launches"]
+            entry["table_path"] = table_path
+        entries.append(entry)
+    elif table_path is not None:
+        log(f"[timing] ppm_lcp on the table path: {json.dumps(table_path)}")
     if mpc_recorded:
         entries.append(measure_bpp(mpc_recorded, stage1, mpc_launches, bpp_err))
     if full_run:
         assert len(entries) == 2 and all(e["launches"] > 0 for e in entries), (
             "a kernel of the main paths was never launched")
+        assert art["launches"] > 0, "the table path never launched ppm_lcp"
+    lap("timing")
     if entries:
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.time() - t_start:.1f} s; scenario-steps/s at B={BATCH}: {rate}; "
-        f"MPC solves/s at B={MPC_BATCH}: {mpc_rate}")
+        f"MPC solves/s at B={MPC_BATCH}: {mpc_rate}; table scenario-steps/s at "
+        f"B={ART_BATCH}: {None if art is None else art['rate']}")
     log(card)
     if not full_run:
         log(f"partial run (phases: {phases}): no result line")

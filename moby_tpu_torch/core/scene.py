@@ -4,24 +4,29 @@
 The scene is compiled host-side (numpy) into a frozen :class:`Scene` of
 fixed-shape tensors shared by every scenario of a batch:
 
-* rigid bodies -> "pose slots" (free body i = slot i),
-* generalized coordinates -> one gc vector, 6 per free body ([v; ω], the
-  reference's eSpatial layout),
+* rigid bodies and articulated-body links -> "pose slots" (free body i =
+  slot i; link l of articulated body k = slot nb + link offset),
+* generalized coordinates -> one gc vector: 6 per free body ([v; ω], the
+  reference's eSpatial layout) followed by each articulated body's nv joint
+  velocities,
 * collision geometries -> typed parameter table with local poses folded in,
 * candidate pairs -> a static pair table grouped by narrow-phase kind,
 * contact slots -> fixed-K layout with per-slot static contact parameters,
+* joint limits -> fixed slots (2 per limited dof: upper and lower), active
+  when q crosses the limit (ArticulatedBody::find_limit_constraints),
 * friction-cone rows -> a static (contact, cos θ, sin θ) table mirroring
   `setup_QP`'s NK/2 half-plane rows (src/ImpactConstraintHandlerQP.cpp:456-479).
 
 :class:`State` carries the batch: every field has a leading ``B``.
 
-This slice of the port covers free bodies with SPHERE, PLANE and BOX
-geometry. Articulated bodies, pair pooling, bilateral constraints, compliant
-contact, heightmaps, meshes, the other primitives and plugin kernels are
-accepted by `SceneBuilder`'s methods and refused by ``compile()`` with a
-``NotImplementedError`` that names the feature. The mesh, heightmap and
-convex-hull tables of the JAX ``Scene`` (``geom_faces``, ``hm_heights``,
-``geom_hull_normals`` ...) have no consumer yet and are not carried.
+The port covers free bodies and articulated bodies with SPHERE, PLANE and
+BOX geometry and joint limits. Pair pooling, bilateral constraints,
+compliant contact, heightmaps, meshes, the other primitives and plugin
+kernels are accepted by `SceneBuilder`'s methods and refused by
+``compile()`` with a ``NotImplementedError`` that names the feature. The
+mesh, heightmap and convex-hull tables of the JAX ``Scene`` (``geom_faces``,
+``hm_heights``, ``geom_hull_normals`` ...) have no consumer yet and are not
+carried.
 
 Index tables are int64 (PyTorch's indexing type) where the JAX package uses
 int32; values are equal.
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import config as cfg
+from ..dynamics import model as amdl
 
 # geometry type codes
 SPHERE = 0
@@ -91,6 +97,17 @@ def _as_tensor(x, device, fdtype):
     if np.issubdtype(a.dtype, np.integer):
         return torch.tensor(a, dtype=torch.int64, device=device)
     return torch.tensor(a, dtype=fdtype, device=device)
+
+
+class ABEntry:
+    """Static metadata of one articulated body of a compiled scene."""
+
+    def __init__(self, name, model: amdl.ArticulatedModel, gc_off, q_off, v_off):
+        self.name = name
+        self.model = model
+        self.gc_off = gc_off  # column offset in the global gc vector
+        self.q_off = q_off    # offset into State.q_art
+        self.v_off = v_off    # offset into State.qd_art
 
 
 def cached(scene, key, make):
@@ -149,7 +166,7 @@ class Scene(_TensorRecord):
     inertia: torch.Tensor         # (nb, 3, 3) body frame
     inv_inertia: torch.Tensor
     enabled: torch.Tensor         # (nb,) bool
-    # ---- pose slots (ns = nb)
+    # ---- pose slots (ns = nb + total links)
     slot_enabled: torch.Tensor    # (ns,) bool
     slot_rmax: torch.Tensor       # (ns,) farthest-point distance (CA bound)
     # ---- geometries (ng,)
@@ -176,12 +193,12 @@ class Scene(_TensorRecord):
     slot_truecone: torch.Tensor   # (K,) bool: NK = inf -> true friction cone
     slot_kp: torch.Tensor
     slot_kv: torch.Tensor
-    # ---- joint-limit slots (NL,) — empty without articulated bodies
-    lim_gc_col: torch.Tensor
-    lim_q_idx: torch.Tensor
-    lim_upper: torch.Tensor
-    lim_value: torch.Tensor
-    lim_eps: torch.Tensor
+    # ---- joint-limit slots (NL,)
+    lim_gc_col: torch.Tensor      # (NL,) gc column of the limited dof
+    lim_q_idx: torch.Tensor       # (NL,) index into q_art of the dof
+    lim_upper: torch.Tensor       # (NL,) bool
+    lim_value: torch.Tensor       # (NL,) limit position
+    lim_eps: torch.Tensor         # (NL,) limit restitution
     # ---- friction-cone rows (NF,)
     fr_con: torch.Tensor
     fr_cos: torch.Tensor
@@ -218,7 +235,7 @@ class Scene(_TensorRecord):
     stab_max_iters: int = 4
     legacy_velocity_first: bool = False
     has_dyn_slots: bool = False
-    arts: Any = ()
+    arts: Any = ()                # tuple[ABEntry]
     bilaterals: Any = ()
     # (kind, nslots) -> {"kind", "pairs", "slots", "nslots"}, numpy indices
     kind_groups: Any = None
@@ -356,9 +373,7 @@ def box_inertia(mass, hx, hy, hz):
 
 
 def _check_ported(statics: dict, kind_groups: dict):
-    """Refuse what this slice does not run, naming the feature."""
-    if statics.get("arts"):
-        raise NotImplementedError("articulated bodies are not ported yet")
+    """Refuse what the port does not run, naming the feature."""
     if statics.get("bilaterals"):
         raise NotImplementedError(
             "bilateral (gear/point/planar) constraints are not ported yet")
@@ -366,8 +381,6 @@ def _check_ported(statics: dict, kind_groups: dict):
         raise NotImplementedError("pair pooling is not ported yet")
     if statics.get("has_compliant"):
         raise NotImplementedError("compliant contact is not ported yet")
-    if statics.get("n_limits", 0):
-        raise NotImplementedError("joint limits are not ported yet")
     for key, grp in (kind_groups or {}).items():
         kind = int(grp["kind"])
         if "kernel" in grp or kind < 0:
@@ -384,13 +397,19 @@ def _check_ported(statics: dict, kind_groups: dict):
 def scene_from_arrays(fields: dict, device, dtype=None) -> Scene:
     """Build a :class:`Scene` from a dict of numpy arrays and Python statics
     — the fields of a compiled scene of either package, arrays already
-    converted with ``np.asarray``. Entries this slice has no consumer for
+    converted with ``np.asarray``. The articulated entries ``arts`` may be
+    either package's: each model is rebuilt from its plain fields
+    (`dynamics.model.copy_model`). Entries the port has no consumer for
     (mesh, heightmap and hull tables) are ignored; features it does not run
     raise ``NotImplementedError``."""
     dev = cfg.resolve_device(device)
     fdtype = cfg.torch_dtype(dtype) if dtype is not None else cfg.default_dtype(dev)
     statics = {k: fields[k] for k in _SCENE_STATICS if k in fields}
-    statics["arts"] = tuple(fields.get("arts") or ())
+    statics["arts"] = tuple(
+        e if isinstance(e.model, amdl.ArticulatedModel)
+        else ABEntry(e.name, amdl.copy_model(e.model), int(e.gc_off),
+                     int(e.q_off), int(e.v_off))
+        for e in (fields.get("arts") or ()))
     statics["bilaterals"] = tuple(fields.get("bilaterals") or ())
     kind_groups = {}
     for key, grp in (fields.get("kind_groups") or {}).items():
@@ -446,6 +465,17 @@ def state_from_arrays(fields: dict, device, dtype=None) -> State:
     return State(**out)
 
 
+@dataclass
+class ABDef:
+    """Articulated body under construction."""
+
+    name: str
+    model: amdl.ArticulatedModel
+    q0: np.ndarray = None
+    qd0: np.ndarray = None
+    link_names: list = None
+
+
 class SceneBuilder:
     """Host-side scene assembly (XMLReader + Simulator setup equivalent)."""
 
@@ -453,6 +483,7 @@ class SceneBuilder:
         self.dtype = dtype          # None: chosen from the device at compile
         self.bodies: list[BodyDef] = []
         self.geoms: list[GeomDef] = []
+        self.arts: list[ABDef] = []
         self.contact_params: dict[tuple[str, str], ContactParams] = {}
         self.gravity = np.zeros(3)
         self.contact_dist_thresh = 1e-6
@@ -465,10 +496,19 @@ class SceneBuilder:
         # features accepted above but refused by compile(), by name
         self._unported: list[str] = []
 
-    # ---------------- not ported yet: recorded, refused at compile ----------
-    def add_articulated(self, name, model, q0=None, qd0=None, link_names=None):
-        self._unported.append("articulated bodies")
+    def add_articulated(self, name, model: amdl.ArticulatedModel, q0=None,
+                        qd0=None, link_names=None) -> ABDef:
+        ab = ABDef(
+            name=name,
+            model=model,
+            q0=np.asarray(q0) if q0 is not None else model.neutral_q(),
+            qd0=np.asarray(qd0) if qd0 is not None else np.zeros(model.nv),
+            link_names=link_names or [lk.name for lk in model.links],
+        )
+        self.arts.append(ab)
+        return ab
 
+    # ---------------- not ported yet: recorded, refused at compile ----------
     def add_gear_constraint(self, ab_name, link_a, link_b, ratio):
         self._unported.append("bilateral gear constraints")
 
@@ -572,9 +612,25 @@ class SceneBuilder:
                     f"'{g.body}') is not ported yet: SPHERE, PLANE and BOX are")
 
         nb = len(self.bodies)
+        # pose-slot map: free body i -> slot i, link l of ab k -> nb + offset
         slot_names = {b.name: i for i, b in enumerate(self.bodies)}
-        ns = nb
-        ngc = 6 * nb
+        slot_owner = [("free", i, 0) for i in range(nb)]
+        total_links = 0
+        gc_off = 6 * nb
+        q_off = v_off = 0
+        art_entries = []
+        for k, ab in enumerate(self.arts):
+            for l, lname in enumerate(ab.link_names):
+                slot_names[f"{ab.name}/{lname}"] = nb + total_links + l
+                slot_owner.append(("link", k, l))
+            art_entries.append(ABEntry(ab.name, ab.model, gc_off, q_off, v_off))
+            total_links += ab.model.nl
+            gc_off += ab.model.nv
+            q_off += ab.model.nq
+            v_off += ab.model.nv
+        ns = nb + total_links
+        ngc = gc_off
+        nq_art, nv_art = q_off, v_off
 
         mass = np.array([b.mass for b in self.bodies], dt) if nb else np.zeros(0, dt)
         inertia = (
@@ -590,7 +646,7 @@ class SceneBuilder:
         for i, b in enumerate(self.bodies):
             if enabled[i] and b.mass > 0:
                 inv_inertia[i] = np.linalg.inv(b.inertia)
-        slot_enabled = enabled.copy()
+        slot_enabled = np.concatenate([enabled, np.ones(total_links, bool)])
 
         all_geoms = list(self.geoms)
         ng = len(all_geoms)
@@ -636,11 +692,29 @@ class SceneBuilder:
                 r = off
             slot_rmax[s] = max(slot_rmax[s], r)
 
-        # candidate pairs: geometry pairs across distinct bodies where at
+        # candidate pairs: geometry pairs across distinct pose slots where at
         # least one side is dynamic (enabled) — CollisionDetection.cpp:48-54
+        def slot_cp_names(s):
+            """ContactParameters names for this slot, most specific first:
+            "ab/link", then the articulated body (geom -> body -> abody,
+            ConstraintSimulator.cpp:82-155)."""
+            kind, k, l = slot_owner[s]
+            if kind == "free":
+                return [self.bodies[k].name]
+            ab = self.arts[k]
+            return [f"{ab.name}/{ab.link_names[l]}", ab.name]
+
+        def slot_names_all(s):
+            """Names this slot answers to for DisabledPair matching: the
+            body or link name and, for a link, its articulated body's."""
+            kind, k, l = slot_owner[s]
+            if kind == "free":
+                return [self.bodies[k].name]
+            return [self.arts[k].link_names[l], self.arts[k].name]
+
         def pair_disabled(si, sj):
-            a, b = self.bodies[si].name, self.bodies[sj].name
-            return tuple(sorted((a, b))) in self.disabled_pairs
+            return any(tuple(sorted((a, b))) in self.disabled_pairs
+                       for a in slot_names_all(si) for b in slot_names_all(sj))
 
         pair_rows = []
         for i in range(ng):
@@ -679,8 +753,12 @@ class SceneBuilder:
         _CAPPABLE = {K_PLANE_GENERIC, K_BOX_BOX}
 
         def _cp_for(s1, s2):
-            key = tuple(sorted((self.bodies[s1].name, self.bodies[s2].name)))
-            return self.contact_params.get(key, ContactParams())
+            for n1 in slot_cp_names(s1):
+                for n2 in slot_cp_names(s2):
+                    key = tuple(sorted((n1, n2)))
+                    if key in self.contact_params:
+                        return self.contact_params[key]
+            return ContactParams()
 
         pair_cp, pair_nsl = [], []
         for (ga, gb, kind) in pair_rows:
@@ -730,6 +808,27 @@ class SceneBuilder:
                 fr_sin.append(math.sin(theta))
         NF = len(fr_con)
 
+        # joint-limit slots: 2 per dof with a finite limit
+        lim_gc_col, lim_q_idx, lim_upper, lim_value, lim_eps = [], [], [], [], []
+        for k, ab in enumerate(self.arts):
+            ent = art_entries[k]
+            m = ab.model
+            for li, lk in enumerate(m.links):
+                jd = lk.joint
+                if jd.hi is None and jd.lo is None:
+                    continue
+                for d in range(amdl.NV[m.jtype[li]]):
+                    hi = jd.hi[d] if jd.hi is not None else np.inf
+                    lo = jd.lo[d] if jd.lo is not None else -np.inf
+                    for upper, val in ((True, hi), (False, lo)):
+                        if np.isfinite(val):
+                            lim_gc_col.append(ent.gc_off + m.v_off[li] + d)
+                            lim_q_idx.append(ent.q_off + m.q_off[li] + d)
+                            lim_upper.append(upper)
+                            lim_value.append(val)
+                            lim_eps.append(jd.restitution or 0.0)
+        NL = len(lim_gc_col)
+
         kind_groups = {}
         for gkey, v in group_of.items():
             kind_groups[gkey] = {
@@ -761,11 +860,11 @@ class SceneBuilder:
             slot_truecone=np.array(s_truecone, bool) if K else np.zeros(0, bool),
             slot_kp=np.array(s_kp, dt),
             slot_kv=np.array(s_kv, dt),
-            lim_gc_col=np.zeros(0, np.int64),
-            lim_q_idx=np.zeros(0, np.int64),
-            lim_upper=np.zeros(0, bool),
-            lim_value=np.zeros(0, dt),
-            lim_eps=np.zeros(0, dt),
+            lim_gc_col=np.array(lim_gc_col, np.int64),
+            lim_q_idx=np.array(lim_q_idx, np.int64),
+            lim_upper=np.array(lim_upper, bool),
+            lim_value=np.array(lim_value, dt),
+            lim_eps=np.array(lim_eps, dt),
             fr_con=np.array(fr_con, np.int64),
             fr_cos=np.array(fr_cos, dt),
             fr_sin=np.array(fr_sin, dt),
@@ -778,8 +877,9 @@ class SceneBuilder:
                 [self.drag_lin.get(b.name, 0.0) for b in self.bodies], dt),
             drag_ang=np.array(
                 [self.drag_ang.get(b.name, 0.0) for b in self.bodies], dt),
-            nb=nb, ng=ng, n_pose_slots=ns, ngc=ngc, nq_art=0, nv_art=0,
-            n_pairs=n_pairs, n_contacts=K, n_friction_rows=NF, n_limits=0,
+            nb=nb, ng=ng, n_pose_slots=ns, ngc=ngc, nq_art=nq_art,
+            nv_art=nv_art, n_pairs=n_pairs, n_contacts=K,
+            n_friction_rows=NF, n_limits=NL,
             vmax=vmax,
             use_noslip=bool(K > 0 and all(m >= 1e2 for m in s_mu_c)),
             use_nqp=bool(K > 0 and any(s_truecone)),
@@ -798,6 +898,7 @@ class SceneBuilder:
             stab_max_iters=int(self.stab_max_iters),
             legacy_velocity_first=bool(self.legacy_velocity_first),
             has_dyn_slots=False,
+            arts=tuple(art_entries),
             kind_groups=kind_groups,
             body_names=tuple(b.name for b in self.bodies),
         )
@@ -807,10 +908,14 @@ class SceneBuilder:
             return (np.stack([getattr(b, attr) for b in self.bodies]).astype(dt)
                     if nb else np.zeros((0, width), dt))
 
+        def art_vec(attr):
+            return (np.concatenate([getattr(ab, attr) for ab in self.arts]).astype(dt)
+                    if self.arts else np.zeros(0, dt))
+
         state = state_from_arrays(dict(
             pos=stack("pos", 3), quat=stack("quat", 4),
             vel=stack("lin_vel", 3), omega=stack("ang_vel", 3),
-            q_art=np.zeros(0, dt), qd_art=np.zeros(0, dt),
+            q_art=art_vec("q0"), qd_art=art_vec("qd0"),
             time=np.array(0.0, dt),
             zlast=np.zeros(scene.n_lcp, dt),
             zlast_active=np.zeros(K, bool),

@@ -1,13 +1,15 @@
 """Impact/impulse resolution: the Drumwright–Shell QP-as-LCP model
-(counterpart of ``moby_tpu/sim/impact.py``, free bodies, QP model).
+(counterpart of ``moby_tpu/sim/impact.py``, QP model).
 
 Mirrors the reference's live solver path
 (`ImpactConstraintHandler::apply_model`, src/ImpactConstraintHandler.cpp:96):
 
 1. connected constraint groups over enabled bodies (islands), dropping groups
    with no impacting constraint;
-2. contact Jacobians over the generalized coordinates and all Delassus cross
-   blocks (`compute_problem_data`, :1898+): free bodies are 6-dof blocks;
+2. contact and joint-limit Jacobians over the generalized coordinates and
+   all Delassus cross blocks (`compute_problem_data`, :1898+): free bodies
+   are 6-dof blocks, articulated bodies couple through their joint-space
+   mass matrix H(q) (X = inv(M), compute_X :1590);
 3. the QP stacked as a monolithic KKT LCP `[[H, -M'], [M, 0]]`
    (`setup_QP` + `solve_qp_work`, src/ImpactConstraintHandlerQP.cpp:94-499)
    solved by the `lcp.solve_lcp` cascade, warm-started from the previous
@@ -33,7 +35,8 @@ from ..core import scene as sc
 from ..geometry.narrowphase import Contacts
 from ..math import quaternion as quat
 from ..solvers import lcp
-from .kinematics import PoseTable, gc_velocity
+from ..dynamics import aba as art_dyn
+from .kinematics import PoseTable, gc_velocity, wrench_rows
 
 
 class ImpactResult(NamedTuple):
@@ -71,7 +74,8 @@ def contact_velocities(scene: sc.Scene, pt: PoseTable, con: Contacts):
 
 
 def island_labels(scene: sc.Scene, active):
-    """Connected components over *enabled* pose slots through active contacts
+    """Connected components over *enabled* pose slots through active
+    contacts; links of one articulated body are always mutually connected
     (src/UnilateralConstraint.cpp:958-1065). Disabled bodies are not nodes.
     active (B, K) -> labels (B, ns)."""
     ns = scene.n_pose_slots
@@ -87,12 +91,23 @@ def island_labels(scene: sc.Scene, active):
     K = int(scene.n_contacts)
     inc = sc.cached(scene, ("island_inc", str(device)), lambda: _incidence(
         scene, K, ns, device))
+    ab_ranges = []
+    off = scene.nb
+    for ent in scene.arts:
+        ab_ranges.append((off, off + ent.model.nl))
+        off += ent.model.nl
     for _ in range(ns):
         m = torch.minimum(labels[:, s1], labels[:, s2])
         upd = torch.where(both, m, ns)
         prop = torch.where(inc[None], upd[:, :, None], ns).amin(dim=1) if K \
             else torch.full_like(labels, ns)
         labels = torch.minimum(labels, prop)
+        if ab_ranges:
+            labels = torch.cat(
+                [labels[:, :ab_ranges[0][0]]]
+                + [labels[:, a:b].amin(dim=1, keepdim=True).expand(B, b - a)
+                   for a, b in ab_ranges]
+                + [labels[:, ab_ranges[-1][1]:]], dim=1)
     return labels
 
 
@@ -144,8 +159,7 @@ def _contact_rows(scene, pt: PoseTable, con: Contacts, act, d_vec):
     r2 = con.point - pt.pos[:, s2]
     w1 = torch.cat([dm, _cross(r1, dm)], dim=-1)  # (B, K, 6)
     w2 = torch.cat([dm, _cross(r2, dm)], dim=-1)
-    return torch.einsum("bki,kij->bkj", w1, pt.W[s1]) - torch.einsum(
-        "bki,kij->bkj", w2, pt.W[s2])
+    return wrench_rows(pt.W, s1, w1) - wrench_rows(pt.W, s2, w2)
 
 
 def _live_free_idx(scene: sc.Scene):
@@ -182,10 +196,13 @@ def free_inv_inertia_blocks(scene: sc.Scene, quat_b):
 
 
 def gc_inv_inertia(scene: sc.Scene, st, quat_b):
-    """Dense (B, ngc, ngc) inverse inertia: 6x6 free-body blocks on the
-    diagonal (the reference's X, compute_X :1590)."""
-    if scene.arts:
-        raise NotImplementedError("articulated bodies are not ported yet")
+    """Dense (B, ngc, ngc) inverse inertia: 6x6 free-body blocks and, per
+    articulated body, its joint-space H(q)^{-1} on the diagonal (the
+    reference's X, compute_X :1590).
+
+    H is SPD: in float32 (the card's dtype) it is inverted by the unpivoted
+    Gauss–Jordan `lcp.gj_invert_pd`, in float64 (the regression mode) by
+    LAPACK, as the JAX package switches on the dtype."""
     nb, ngc = scene.nb, scene.ngc
     B = quat_b.shape[0]
     out = quat_b.new_zeros((B, ngc, ngc))
@@ -193,17 +210,48 @@ def gc_inv_inertia(scene: sc.Scene, st, quat_b):
         blk = free_inv_inertia_blocks(scene, quat_b)
         for b in range(nb):
             out[:, 6 * b: 6 * b + 6, 6 * b: 6 * b + 6] = blk[:, b]
+    for ent in scene.arts:
+        m = ent.model
+        H = art_dyn.crb(m, st.q_art[:, ent.q_off: ent.q_off + m.nq])
+        if H.dtype == torch.float32:
+            Hinv, _ = lcp.gj_invert_pd(H)
+        else:
+            Hinv = torch.linalg.inv(H)
+        g = ent.gc_off
+        out[:, g: g + m.nv, g: g + m.nv] = Hinv
     return out
+
+
+def _lim_onehot(scene, dtype, device):
+    """(NL, ngc): row i has a 1 at limit i's gc column."""
+    oh = np.zeros((scene.n_limits, scene.ngc))
+    oh[np.arange(scene.n_limits), scene.host["lim_gc_col"]] = 1.0
+    return torch.as_tensor(oh, dtype=dtype, device=device)
+
+
+def limit_activity_state(scene: sc.Scene, st, near_zero):
+    """Active limit slots (q beyond the limit:
+    ArticulatedBody::find_limit_constraints) and their constraint velocity
+    (±qd: compute_limit_components / calc_constraint_vel), both (B, NL)."""
+    B = st.pos.shape[0]
+    if scene.n_limits == 0:
+        return (torch.zeros((B, 0), dtype=torch.bool, device=st.pos.device),
+                st.pos.new_zeros((B, 0)))
+    q = st.q_art[:, scene.lim_q_idx]
+    qd = st.qd_art[:, scene.lim_gc_col - 6 * scene.nb]
+    act = torch.where(scene.lim_upper, q >= scene.lim_value, q <= scene.lim_value)
+    vel = torch.where(scene.lim_upper, -qd, qd)
+    return act, vel
 
 
 def assemble_problem(scene, st, pt: PoseTable, con: Contacts, act, act_lim) -> Problem:
     """One stacked Jacobian Jall = [Jn; Js; Jt; Jl], ONE Delassus
     A = Jall Minv Jall^T and one bv = Jall v; the named blocks are slices."""
-    if scene.n_limits or scene.bilaterals:
-        raise NotImplementedError(
-            "joint limits and bilateral constraints are not ported yet")
+    if scene.bilaterals:
+        raise NotImplementedError("bilateral constraints are not ported yet")
     dtype = st.pos.dtype
     K = scene.n_contacts
+    NL = scene.n_limits
     ngc = scene.ngc
     B = st.pos.shape[0]
 
@@ -219,10 +267,19 @@ def assemble_problem(scene, st, pt: PoseTable, con: Contacts, act, act_lim) -> P
         r2 = pts - pt.pos[:, s2]
         w1 = torch.cat([dm, _cross(r1, dm)], dim=-1)  # (B, 3K, 6)
         w2 = torch.cat([dm, _cross(r2, dm)], dim=-1)
-        Jall = torch.einsum("bki,kij->bkj", w1, pt.W[s1]) - torch.einsum(
-            "bki,kij->bkj", w2, pt.W[s2])
+        J3 = wrench_rows(pt.W, s1, w1) - wrench_rows(pt.W, s2, w2)
     else:
-        Jall = st.pos.new_zeros((B, 0, ngc))
+        J3 = st.pos.new_zeros((B, 0, ngc))
+
+    if NL:
+        sign = torch.where(scene.lim_upper, -1.0, 1.0).to(dtype)
+        sign = torch.where(act_lim, sign, 0.0)
+        onehot = sc.cached(scene, ("lim_onehot", str(dtype), str(st.pos.device)),
+                           lambda: _lim_onehot(scene, dtype, st.pos.device))
+        Jl = sign[..., None] * onehot                 # (B, NL, ngc)
+    else:
+        Jl = st.pos.new_zeros((B, 0, ngc))
+    Jall = torch.cat([J3, Jl], dim=1)                 # (B, 3K+NL, ngc)
 
     Minv = gc_inv_inertia(scene, st, st.quat)
     v = gc_velocity(scene, st)
@@ -236,7 +293,7 @@ def assemble_problem(scene, st, pt: PoseTable, con: Contacts, act, act_lim) -> P
     Jr_live = None
     all_enabled_massive = bool(
         ((scene.host["mass"] > 0) | ~scene.host["enabled"]).all())
-    if scene.nb and K and all_enabled_massive:
+    if not scene.arts and scene.nb and K and all_enabled_massive:
         assert scene.n_pose_slots == scene.nb
         il = _live_free_idx(scene)
         Minv_blk = free_inv_inertia_blocks_live(scene, st.quat)
@@ -425,15 +482,26 @@ def _min_constraint_vel(Cn_v, act, L_v, act_lim):
 
 
 def group_labels(scene, con):
-    """Island label of every contact slot (the connected constraint groups of
-    `determine_connected_constraints`), (B, K); no limit slots yet."""
+    """Island label of every contact slot (B, K) and limit slot (B, NL) (the
+    connected constraint groups of `determine_connected_constraints`)."""
     labels = island_labels(scene, con.active)
     ns = scene.n_pose_slots
     s1, s2 = scene.slot_s1, scene.slot_s2
     lab1 = torch.where(scene.slot_enabled[s1], labels[:, s1], ns)
     lab2 = torch.where(scene.slot_enabled[s2], labels[:, s2], ns)
     con_lab = torch.minimum(lab1, lab2)
-    lim_lab = labels.new_zeros((labels.shape[0], 0))
+    if scene.n_limits:
+        def make():
+            col_to_slot = np.zeros(scene.ngc, np.int64)
+            off = scene.nb
+            for ent in scene.arts:
+                col_to_slot[ent.gc_off: ent.gc_off + ent.model.nv] = off
+                off += ent.model.nl
+            return torch.as_tensor(col_to_slot[scene.host["lim_gc_col"]],
+                                   device=labels.device)
+        lim_lab = labels[:, sc.cached(scene, ("lim_slot", str(labels.device)), make)]
+    else:
+        lim_lab = labels.new_zeros((labels.shape[0], 0))
     return con_lab, lim_lab
 
 
@@ -446,16 +514,21 @@ def model_masks(scene, con):
 def _active(scene, st, pt, con, nz):
     """Solve masks (contacts, limits) plus raw constraint velocities."""
     cn_vel, _, _ = contact_velocities(scene, pt, con)
-    B = cn_vel.shape[0]
-    lim_act = torch.zeros((B, 0), dtype=torch.bool, device=cn_vel.device)
-    lim_vel = cn_vel.new_zeros((B, 0))
+    lim_act, lim_vel = limit_activity_state(scene, st, nz)
+    con_lab, lim_lab = group_labels(scene, con)
 
-    con_lab, _ = group_labels(scene, con)
     # "group has an impacting member" via label comparison: O(K^2) bools
+    def any_in_group(lab_q, lab_src, flags):
+        return ((lab_q[:, :, None] == lab_src[:, None, :])
+                & flags[:, None, :]).any(dim=2)
+
     neg_con = con.active & (cn_vel < -nz)
-    same_grp = con_lab[:, :, None] == con_lab[:, None, :]
-    act = con.active & (same_grp & neg_con[:, None, :]).any(dim=2)
-    return act, lim_act, cn_vel, lim_vel
+    neg_lim = lim_act & (lim_vel < -nz)
+    act = con.active & (any_in_group(con_lab, con_lab, neg_con)
+                        | any_in_group(con_lab, lim_lab, neg_lim))
+    act_lim = lim_act & (any_in_group(lim_lab, con_lab, neg_con)
+                         | any_in_group(lim_lab, lim_lab, neg_lim))
+    return act, act_lim, cn_vel, lim_vel
 
 
 def resolve_impacts(
@@ -468,7 +541,8 @@ def resolve_impacts(
 
     `lcp_solver(M, q, mask, z0, skip=) -> (z, ok[, stats])` defaults to the
     production pivoting cascade (`cascade` is handed to it).
-    `act_filter` restricts the solve to a subset of contact slots.
+    `act_filter`/`lim_filter` restrict the solve to a subset of contact and
+    limit slots.
     """
     if lcp_solver is None:
         def lcp_solver(M, q, m, z0, skip=None):
@@ -494,7 +568,9 @@ def resolve_impacts(
     act, act_lim, cn_vel, lim_vel = _active(scene, st, pt, con, nz)
     if act_filter is not None:
         act = act & act_filter
-    any_impact = act.any(dim=1)
+    if lim_filter is not None and scene.n_limits:
+        act_lim = act_lim & lim_filter
+    any_impact = act.any(dim=1) | act_lim.any(dim=1)
 
     p = assemble_problem(scene, st, pt, con, act, act_lim)
     MM, qq, mask = build_qp_lcp(scene, p, act, act_lim)
@@ -516,7 +592,10 @@ def resolve_impacts(
     # (apply_restitution(q, z), src/ImpactConstraintHandler.cpp:470-500).
     # When every restitution coefficient is zero (static) the scaled impulses
     # vanish and dv == dv1: skip the whole second assembly + gated solve.
-    eps_all_zero = K == 0 or float(np.max(scene.host["slot_eps"])) == 0.0
+    eps_all_zero = (
+        (K == 0 or float(np.max(scene.host["slot_eps"])) == 0.0)
+        and (scene.n_limits == 0
+             or float(np.max(scene.host["lim_eps"])) == 0.0))
 
     def _impulse_to_dv(imp):
         """dv = inv(M) Jallᵀ imp, through the live-compressed blocks when
@@ -549,9 +628,11 @@ def resolve_impacts(
             z_step=torch.where(ai, z_f, 0.0),
         )
 
+    NL = scene.n_limits
     zr = z.clone()
     zr[:, :K] *= scene.slot_eps
-    changed = (zr[:, :K] > nz).any(dim=1)
+    zr[:, 5 * K: 5 * K + NL] *= scene.lim_eps
+    changed = (zr[:, :K] > nz).any(dim=1) | (zr[:, 5 * K: 5 * K + NL] > nz).any(dim=1)
 
     cn2 = zr[:, :K]
     imp2 = _impulse_vec(scene, zr)

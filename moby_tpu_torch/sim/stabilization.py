@@ -2,10 +2,11 @@
 ``moby_tpu/sim/stabilization.py``.
 
 Mirrors `ConstraintStabilization::stabilize` (src/ConstraintStabilization.cpp:167):
-while the minimum pairwise signed distance is below eps (= NEAR_ZERO), solve a
-position-level LCP over the contact-normal Jacobians
+while the minimum pairwise signed distance or joint-limit slack is below
+eps (= NEAR_ZERO), solve a position-level LCP over the stacked contact-normal
+and limit Jacobians Q = [Cn; L]
 
-    Cn·inv(M)·Cn' z + (dist - |eps| - NEAR_ZERO) >= 0,  z >= 0
+    Q·inv(M)·Q' z + (slack - |eps| - NEAR_ZERO) >= 0,  z >= 0
 
 (the reference's `determine_dq`, :932) and move the configuration by the
 resulting generalized displacement. The reference guards the update with a
@@ -32,26 +33,36 @@ from . import kinematics
 MAX_STAB_ITERS = 50   # safety cap; the loop is violation-driven
 
 
+def _limit_violation(scene, s):
+    """Signed joint-limit slack (B, NL), >= 0 when satisfied: hi - q or
+    q - lo."""
+    q = s.q_art[:, scene.lim_q_idx]
+    return torch.where(scene.lim_upper, scene.lim_value - q, q - scene.lim_value)
+
+
 def stabilize(scene: sc.Scene, st: sc.State, cascade=None) -> sc.State:
     dtype = st.pos.dtype
     nz = cfg.near_zero(dtype)
-    if scene.n_limits or scene.bilaterals:
-        raise NotImplementedError(
-            "joint limits and bilateral constraints are not ported yet")
-    if scene.n_contacts == 0:
+    from .stepper import integrate_art_q
+
+    if scene.bilaterals:
+        raise NotImplementedError("bilateral constraints are not ported yet")
+    if scene.n_contacts == 0 and scene.n_limits == 0:
         return st
     if scene.stab_max_iters == 0:
         # disabled (XML constraint-stabilization-max-iterations="0")
         return st
     B = st.pos.shape[0]
     nb = scene.nb
+    K = scene.n_contacts
 
     def min_dist(s):
-        if not scene.n_pairs:
-            return s.pos.new_full((B,), torch.inf)
-        pt = kinematics.compute(scene, s)
-        pd, _ = nph.narrow_phase(scene, pt.pos, pt.quat, nz)
-        return pd.dist.amin(dim=1)
+        vals = [s.pos.new_full((B, 1), torch.inf), _limit_violation(scene, s)]
+        if scene.n_pairs:
+            pt = kinematics.compute(scene, s)
+            pd, _ = nph.narrow_phase(scene, pt.pos, pt.quat, nz)
+            vals.append(pd.dist)
+        return torch.cat(vals, dim=1).amin(dim=1)
 
     s = st
     for _ in range(min(MAX_STAB_ITERS, scene.stab_max_iters)):
@@ -62,24 +73,33 @@ def stabilize(scene: sc.Scene, st: sc.State, cascade=None) -> sc.State:
         pt = kinematics.compute(scene, s)
         _, con = nph.narrow_phase(scene, pt.pos, pt.quat, torch.inf)
         act = con.active & torch.isfinite(con.depth)
-        no_lim = act.new_zeros((B, 0))
+        all_lim = act.new_ones((B, scene.n_limits))
 
-        p = impact.assemble_problem(scene, s, pt, con, act, no_lim)
-        # position LCP over the contact normals (determine_dq:932)
-        MM = p.Ann.contiguous()
-        qq = con.depth - abs(nz) - nz
-        z, _ok = lcp.solve_lcp_fast_lemke(MM, qq, act, cascade=cascade)
+        p = impact.assemble_problem(scene, s, pt, con, act, all_lim)
+        # stacked [contacts; limits] position LCP (determine_dq:932)
+        MM = torch.cat([torch.cat([p.Ann, p.Anl], dim=2),
+                        torch.cat([p.Anl.transpose(-1, -2), p.All], dim=2)], dim=1)
+        qq = torch.cat([con.depth - abs(nz) - nz,
+                        _limit_violation(scene, s) - abs(nz) - nz], dim=1)
+        mact = torch.cat([act, all_lim], dim=1)
+        z, _ok = lcp.solve_lcp_fast_lemke(MM, qq, mact, cascade=cascade)
 
-        # generalized displacement dq = inv(M) Cn' z
-        w = p.Jn.transpose(-1, -2) @ z[..., None]
+        # generalized displacement dq = inv(M) [Cn' L'] z
+        w = (p.Jn.transpose(-1, -2) @ z[:, :K, None]
+             + p.Jl.transpose(-1, -2) @ z[:, K:, None])
         dv = (p.Minv @ w)[..., 0]
 
         def apply_dq(s0, t):
-            dvb = dv[:, : 6 * nb].reshape(B, nb, 6) * t
-            newpos = s0.pos + dvb[..., :3]
-            newquat = quat.normalize(
-                s0.quat + quat.deriv(s0.quat, dvb[..., 3:]))
-            return s0.replace(pos=newpos, quat=newquat)
+            s2 = s0
+            if nb:
+                dvb = dv[:, : 6 * nb].reshape(B, nb, 6) * t
+                s2 = s2.replace(
+                    pos=s0.pos + dvb[..., :3],
+                    quat=quat.normalize(s0.quat + quat.deriv(s0.quat, dvb[..., 3:])))
+            if scene.nv_art:
+                s2 = s2.replace(q_art=integrate_art_q(
+                    scene, s0.q_art, dv[:, 6 * nb:], t))
+            return s2
 
         # backtracking guard (Ridders analog): try the full projection step
         # first, halve while it makes the worst violation worse. The slack is
@@ -88,12 +108,13 @@ def stabilize(scene: sc.Scene, st: sc.State, cascade=None) -> sc.State:
         scores = torch.stack(
             [min_dist(c).clamp_max(nz) for c in cands], dim=1)
         best = torch.argmax(scores, dim=1)   # first (largest t) wins ties
-        pos_c = torch.stack([c.pos for c in cands], dim=1)
-        quat_c = torch.stack([c.quat for c in cands], dim=1)
         ar = torch.arange(B, device=best.device)
-        sel = active[:, None, None]
-        s = s.replace(
-            pos=torch.where(sel, pos_c[ar, best], s.pos),
-            quat=torch.where(sel, quat_c[ar, best], s.quat),
-        )
+        pick = {}
+        for name in ("pos", "quat", "q_art"):
+            stacked = torch.stack([getattr(c, name) for c in cands], dim=1)
+            old = getattr(s, name)
+            pick[name] = torch.where(
+                active.reshape((B,) + (1,) * (old.dim() - 1)),
+                stacked[ar, best], old)
+        s = s.replace(**pick)
     return s

@@ -1,5 +1,6 @@
 """The time-stepping simulator core (counterpart of
-``moby_tpu/sim/stepper.py``, free bodies, QP contact model).
+``moby_tpu/sim/stepper.py``: free and articulated bodies, joint limits, the
+QP and no-slip impact models).
 
 Mirror of the reference's live stepper (`TimeSteppingSimulator::step` ->
 `step_si_Euler` -> `do_mini_step`, src/TimeSteppingSimulator.cpp:52-222):
@@ -11,12 +12,13 @@ Mirror of the reference's live stepper (`TimeSteppingSimulator::step` ->
   do_mini_step(Δ):
     save q
     while h < Δ:
-      CA = conservative advancement bound       (CCD::calc_CA_Euler_step,
-      if CA <= 0: break                          TimeSteppingSimulator:272-331)
-      tc = min(Δ-h, max(min_step_size, CA))
+      CA = conservative advancement bound       (CCD::calc_CA_Euler_step +
+      if CA <= 0: break                          joint-limit ETAs,
+      tc = min(Δ-h, max(min_step_size, CA))      TimeSteppingSimulator:272-331)
       q  = qsave + qd_euler·(h+tc)              (position from saved coords,
       h += tc                                    Euler velocity at qsave)
-    a = fwd_dyn(q, v)                           (Newton-Euler)
+    a = fwd_dyn(q, v)                           (free bodies: Newton-Euler;
+                                                 articulated: Featherstone ABA)
     v += a·h ;  dissipation
     find contacts at q;  impact handler         [impact.resolve_impacts]
 
@@ -34,11 +36,14 @@ import torch
 
 from .. import config as cfg
 from ..core import scene as sc
+from ..dynamics import aba as art_dyn
+from ..dynamics import model as amdl
 from ..geometry import narrowphase as nph
 from ..math import quaternion as quat
 from ..solvers.lcp import _check_device
 from . import impact
 from . import kinematics
+from . import noslip
 from . import stabilization
 
 MAX_MINI_STEPS = 64
@@ -84,6 +89,58 @@ def forward_dynamics_free(scene: sc.Scene, quat_b, omega, vel=None):
     a_ang = torch.zeros_like(omega)
     a_ang[:, il] = a_ang_l
     return a_lin, a_ang
+
+
+def articulated_qdd(scene: sc.Scene, st: sc.State, tau=None):
+    """Joint accelerations (B, nv_art) of every articulated body
+    (`fdyn-algorithm fsab`); tau (B, nv_art) or None."""
+    B = st.pos.shape[0]
+    parts = []
+    for ent in scene.arts:
+        m = ent.model
+        q = st.q_art[:, ent.q_off: ent.q_off + m.nq]
+        qd = st.qd_art[:, ent.v_off: ent.v_off + m.nv]
+        t = (tau[:, ent.v_off: ent.v_off + m.nv] if tau is not None
+             else torch.zeros_like(qd))
+        parts.append(art_dyn.aba(m, q, qd, t, scene.gravity))
+    if not parts:
+        return st.pos.new_zeros((B, 0))
+    return torch.cat(parts, dim=-1)
+
+
+def integrate_art_q(scene: sc.Scene, q_art, qd_art, h):
+    """Euler-coordinate position integration per joint type (the
+    reference's eEuler coordinates: quaternion joints integrate through the
+    quaternion derivative). h is a scalar or (B,)."""
+    if scene.nq_art == 0:
+        return q_art
+    h = torch.as_tensor(h, dtype=q_art.dtype, device=q_art.device)
+    if h.dim() == 1:
+        h = h[:, None]
+    segs = []
+    for ent in scene.arts:
+        m = ent.model
+        for i in range(m.nl):
+            t = m.jtype[i]
+            qo = ent.q_off + m.q_off[i]
+            vo = ent.v_off + m.v_off[i]
+            if t in (amdl.REVOLUTE, amdl.PRISMATIC, amdl.UNIVERSAL, amdl.PLANAR):
+                n = amdl.NQ[t]
+                segs.append(q_art[:, qo: qo + n] + qd_art[:, vo: vo + n] * h)
+            elif t == amdl.SPHERICAL:
+                qq = q_art[:, qo: qo + 4]
+                w = qd_art[:, vo: vo + 3]
+                segs.append(quat.normalize(qq + quat.deriv(qq, w) * h))
+            elif t == amdl.FLOATING:
+                pos = q_art[:, qo: qo + 3]
+                qq = q_art[:, qo + 3: qo + 7]
+                # floating joint qd: [ω_base; v_base] in base coords -> world
+                Rb = quat.to_matrix(qq)
+                w_w = (Rb @ qd_art[:, vo: vo + 3, None])[..., 0]
+                v_w = (Rb @ qd_art[:, vo + 3: vo + 6, None])[..., 0]
+                segs.append(pos + v_w * h)
+                segs.append(quat.normalize(qq + quat.deriv(qq, w_w) * h))
+    return torch.cat(segs, dim=-1)
 
 
 def _slot_dir_speed(scene, pt, n, s):
@@ -185,27 +242,28 @@ def ca_euler_step(scene: sc.Scene, st, pt, min_dist_obs):
 
 def _limit_eta(scene, st, min_step):
     """Joint-limit ETAs (TimeSteppingSimulator::calc_next_CA_Euler_step:280-307);
-    none without articulated bodies."""
-    if scene.n_limits:
-        raise NotImplementedError("joint limits are not ported yet")
-    return min_step
+    min_step (B,)."""
+    if scene.n_limits == 0:
+        return min_step
+    q = st.q_art[:, scene.lim_q_idx]
+    qd = st.qd_art[:, scene.lim_gc_col - 6 * scene.nb]
+    up = scene.lim_upper
+    gap = (scene.lim_value - q) / torch.where(qd != 0, qd, 1.0)
+    t_up = torch.where(up & (q < scene.lim_value) & (qd > 0.0), gap, torch.inf)
+    t_lo = torch.where(~up & (q > scene.lim_value) & (qd < 0.0), gap, torch.inf)
+    return torch.minimum(min_step, torch.minimum(t_up, t_lo).amin(dim=1))
 
 
 def _refuse_unported(scene):
     if scene.legacy_velocity_first:
         raise NotImplementedError(
             "the legacy velocity-first step (step_legacy_vf) is not ported yet")
-    if scene.arts or scene.nv_art:
-        raise NotImplementedError("articulated bodies are not ported yet")
     if scene.has_compliant:
         raise NotImplementedError("compliant contact is not ported yet")
     if scene.bilaterals:
         raise NotImplementedError("bilateral constraints are not ported yet")
     if scene.mixed_models:
         raise NotImplementedError("mixed impact models are not ported yet")
-    if scene.use_noslip:
-        raise NotImplementedError(
-            "the no-slip impact model (mu >= 100) is not ported yet")
     if scene.use_nqp:
         raise NotImplementedError(
             "the true-cone (NQP) impact model is not ported yet")
@@ -224,7 +282,7 @@ def do_mini_step(scene: sc.Scene, st: sc.State, dt_rem, controller=None,
     floor only engages when CA < tc_floor.
     """
     _refuse_unported(scene)
-    pos0, quat0 = st.pos, st.quat
+    pos0, quat0, qart0 = st.pos, st.quat, st.q_art
     B = pos0.shape[0]
 
     qdot = quat.deriv(quat0, st.omega)
@@ -232,7 +290,7 @@ def do_mini_step(scene: sc.Scene, st: sc.State, dt_rem, controller=None,
     if tc_floor is not None:
         floor = torch.maximum(floor, tc_floor)
 
-    pos, qt = pos0, quat0
+    pos, qt, qa = pos0, quat0, qart0
     h = pos0.new_zeros(B)
     brk = torch.zeros(B, dtype=torch.bool, device=pos0.device)
     mdo = st.min_dist_obs
@@ -240,7 +298,7 @@ def do_mini_step(scene: sc.Scene, st: sc.State, dt_rem, controller=None,
         active = ~brk & (h < dt_rem)
         if not bool(active.any()):
             break
-        st_c = st.replace(pos=pos, quat=qt)
+        st_c = st.replace(pos=pos, quat=qt, q_art=qa)
         pt = kinematics.compute(scene, st_c)
         ca, mdo_n = ca_euler_step(scene, st_c, pt, mdo)
         brk_n = ca <= 0.0
@@ -248,39 +306,56 @@ def do_mini_step(scene: sc.Scene, st: sc.State, dt_rem, controller=None,
         hn = (h + tc)[:, None, None]
         newpos = pos0 + st.vel * hn
         newquat = quat.normalize(quat0 + qdot * hn)
+        newq = integrate_art_q(scene, qart0, st.qd_art, h + tc)
         adv = (active & ~brk_n)
         pos = torch.where(adv[:, None, None], newpos, pos)
         qt = torch.where(adv[:, None, None], newquat, qt)
+        qa = torch.where(adv[:, None], newq, qa)
         h = torch.where(adv, h + tc, h)
         brk = torch.where(active, brk_n, brk)
         mdo = torch.where(active[:, None], mdo_n, mdo)
-    st2 = st.replace(pos=pos, quat=qt, min_dist_obs=mdo)
+    st2 = st.replace(pos=pos, quat=qt, q_art=qa, min_dist_obs=mdo)
 
     # forward dynamics + semi-implicit velocity update
     # controller hook (ControlledBody::controller, src/Simulator.cpp:339-348):
-    # returns generalized forces (B, ngc): per-free-body wrenches [f; τ]
+    # returns generalized forces (B, ngc) over the gc layout: per-free-body
+    # wrenches [f; τ] followed by articulated joint torques
+    tau = None
+    u_free = None
+    if controller is not None:
+        u = controller(scene, st2)
+        nb6 = 6 * scene.nb
+        if scene.nb:
+            u_free = u[:, :nb6].reshape(B, scene.nb, 6)
+        if scene.nv_art:
+            tau = u[:, nb6:]
     a_lin, a_ang = forward_dynamics_free(scene, st2.quat, st2.omega, st2.vel)
-    if controller is not None and scene.nb:
-        u_free = controller(scene, st2)[:, : 6 * scene.nb].reshape(B, scene.nb, 6)
+    if u_free is not None:
         a_lin = a_lin + scene.inv_mass[:, None] * u_free[..., :3]
         Rc = quat.to_matrix(st2.quat)
         Iinv_w = Rc @ scene.inv_inertia @ Rc.transpose(-1, -2)
         a_ang = a_ang + (Iinv_w @ u_free[..., 3:, None])[..., 0]
+    qdd = articulated_qdd(scene, st2, tau)
 
     hh = h[:, None, None]
     vel = st2.vel + a_lin * hh
     omega = st2.omega + a_ang * hh
+    qd_art = st2.qd_art + qdd * h[:, None]
 
     # dissipation (src/Dissipation.cpp:30-55)
     lam = scene.dissipation_lambda[:, None]
-    st2 = st2.replace(vel=vel * lam, omega=omega * lam)
+    st2 = st2.replace(vel=vel * lam, omega=omega * lam, qd_art=qd_art)
 
-    # contacts at the new configuration + impact resolution
-    if scene.n_contacts:
+    # contacts at the new configuration + impact resolution; the no-slip
+    # model when every contact has mu >= 100 (apply_model's `all_inf`
+    # branch, src/ImpactConstraintHandler.cpp:123-131)
+    if scene.n_contacts or scene.n_limits:
         pt = kinematics.compute(scene, st2)
         _, con = nph.narrow_phase(
             scene, pt.pos, pt.quat, scene.contact_dist_thresh)
-        res = impact.resolve_impacts(
+        resolve = (noslip.resolve_impacts_noslip if scene.use_noslip
+                   else impact.resolve_impacts)
+        res = resolve(
             scene, st2, pt, con, st.zlast, st.zlast_active, cascade=cascade)
         st2 = kinematics.apply_gc_velocity_delta(scene, st2, res.dv)
         st2 = st2.replace(zlast=res.zlast, zlast_active=res.zlast_active)

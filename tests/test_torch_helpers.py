@@ -14,10 +14,15 @@ import jax.numpy as jnp
 import torch
 
 from moby_tpu.core import scene as jsc
+from moby_tpu.dynamics import model as jmdl
+from moby_tpu.io import mobyxml as jxml
 from moby_tpu.math import quaternion as jquat
 from moby_tpu_torch.core import scene as tsc
+from moby_tpu_torch.dynamics import model as tmdl
 
 PLANE_RPY = [1.5707963267949, 0, 0]
+TABLE_XML = "scenes/fixed-articulated-table.xml"
+SITTING_BOX_XML = "scenes/sitting-box.xml"
 
 
 def plane_quat():
@@ -98,6 +103,89 @@ def build_box_on_box(sc, max_slots=0):
     return b
 
 
+def pendulum_model(mdl, lo=None, hi=None, restitution=0.0):
+    """`tests/test_articulated_sim.py::pendulum_model` on the dynamics model
+    module `mdl` of either package: a 1 m rod of 1 kg on a revolute joint
+    about z, optionally limited to [lo, hi]."""
+    j = mdl.JointDef(
+        jtype=mdl.REVOLUTE, Xt_E=np.eye(3), Xt_r=np.zeros(3),
+        axis=np.array([0.0, 0, 1]),
+        lo=np.array([lo]) if lo is not None else None,
+        hi=np.array([hi]) if hi is not None else None,
+        restitution=restitution,
+    )
+    link = mdl.LinkDef(name="rod", mass=1.0, com=np.array([0.0, -0.5, 0.0]),
+                       inertia_com=np.diag([1.0 / 12, 1e-12, 1.0 / 12]), joint=j)
+    m = mdl.ArticulatedModel([link], floating=False)
+    m.set_parents([-1])
+    return m
+
+
+def _mdl(sc):
+    return jmdl if sc is jsc else tmdl
+
+
+def build_swing(sc):
+    """`test_articulated_sim.py`'s swinging pendulum, from q=1."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, -9.81, 0])
+    b.add_articulated("pend", pendulum_model(_mdl(sc)), q0=np.array([1.0]))
+    return b
+
+
+def build_limited_pendulum(sc, restitution=0.0):
+    """`test_articulated_sim.py`'s pendulum released from q=1 against a
+    hard lower limit at 0.5 (and an upper one at 3.0)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, -9.81, 0])
+    b.add_articulated("pend", pendulum_model(_mdl(sc), lo=0.5, hi=3.0,
+                                             restitution=restitution),
+                      q0=np.array([1.0]))
+    return b
+
+
+def build_pendulum_ball(sc, q0=np.pi / 2):
+    """`test_articulated_sim.py`'s pendulum with a sphere on its tip swinging
+    (qd=-2 rad/s, no gravity) into a free ball: contacts with restitution
+    0.5 between an articulated link and a free body. `q0` moves the start
+    along the same swing (π/2 in the JAX test)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, 0])
+    b.add_articulated("pend", pendulum_model(_mdl(sc)), q0=np.array([q0]),
+                      qd0=np.array([-2.0]))
+    b.add_geom("pend/rod", sc.SPHERE, [0.1], pos=np.array([0, -1.0, 0]))
+    b.add_body("ball", mass=0.1, inertia=sc.sphere_inertia(0.1, 0.1),
+               pos=np.array([0.15, -1.1, 0.0]))
+    b.add_geom("ball", sc.SPHERE, [0.1])
+    b.set_contact_params(
+        "pend", "ball", sc.ContactParams(epsilon=0.5, mu_coulomb=0.0, nk=4))
+    return b
+
+
+def build_noslip_ball(sc):
+    """A ball dropped onto the plane with infinite friction (mu >= 100: the
+    no-slip model) and restitution 0.5, sliding and spinning as it lands."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ball", mass=1.0, inertia=sc.sphere_inertia(1.0, 0.5),
+               pos=np.array([0.0, 0.0, 0.52]), lin_vel=np.array([0.3, -0.1, 0.0]),
+               ang_vel=np.array([0.0, 0.0, 2.0]))
+    b.add_body("ground", enabled=False)
+    b.add_geom("ball", sc.SPHERE, [0.5])
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params(
+        "ground", "ball", sc.ContactParams(epsilon=0.5, mu_coulomb=200.0, nk=4))
+    return b
+
+
+def load_table_both():
+    """The repo's articulated table scene (`scenes/fixed-articulated-table.xml`)
+    loaded by the JAX package and carried across into the port (CPU,
+    float64). Returns (jscene, jstate, tscene, tstate)."""
+    jscene, jstate, _ = jxml.load(TABLE_XML)
+    return (jscene, jstate) + torch_scene_state(jscene, jstate)
+
+
 def jax_fields(obj):
     """A compiled JAX Scene/State as a dict of numpy arrays and statics."""
     out = {}
@@ -119,6 +207,19 @@ def batch_jax_state(jstate, B, dz):
     batched = jax.tree_util.tree_map(
         lambda x: jnp.broadcast_to(x, (B,) + x.shape), jstate)
     return batched.replace(pos=batched.pos.at[:, :, 2].add(jnp.asarray(dz)))
+
+
+def batch_jax_art_state(jstate, B, q_art, qd_art):
+    """B copies of a JAX state with per-scenario q_art/qd_art (B, n)."""
+    batched = jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x, (B,) + x.shape), jstate)
+    return batched.replace(q_art=jnp.asarray(q_art), qd_art=jnp.asarray(qd_art))
+
+
+def batch_torch_art_state(tstate, B, q_art, qd_art):
+    st = tstate.expand(B)
+    return st.replace(q_art=torch.as_tensor(q_art, dtype=st.pos.dtype),
+                      qd_art=torch.as_tensor(qd_art, dtype=st.pos.dtype))
 
 
 def batch_torch_state(tstate, B, dz):
@@ -199,3 +300,48 @@ def ilqr_arrays(res):
     """An ILQRResult of either package as numpy arrays (us, xs, cost)."""
     conv = t2n if isinstance(res.cost, torch.Tensor) else np.asarray
     return conv(res.us), conv(res.xs), conv(res.cost)
+
+
+def assert_same_fields(tobj, jfields, names):
+    """The port's Scene/State fields `names` equal the JAX package's (a
+    dict from `jax_fields`); a single-scenario JAX state against the
+    port's batch of 1."""
+    for k in names:
+        tv, jv = getattr(tobj, k), jfields[k]
+        if isinstance(tv, torch.Tensor):
+            tv = t2n(tv)
+            if jv.ndim == tv.ndim - 1:       # State: leading batch of 1
+                tv = tv[0]
+            assert tv.shape == jv.shape, k
+            np.testing.assert_array_equal(tv, jv, err_msg=k)
+        else:
+            assert tv == jv, k
+
+
+def assert_same_compiled(tscene, tstate, jscene, jstate):
+    """The port's compiled Scene/State equal the JAX package's: every array
+    and static, the kind groups, and each articulated body's offsets and
+    model tables (equal, not close: both run the same host-side numpy)."""
+    assert_same_fields(tscene, jax_fields(jscene),
+                       tsc._SCENE_ARRAYS + tsc._SCENE_STATICS + ("body_names",))
+    assert_same_fields(tstate, jax_fields(jstate), tsc._STATE_ARRAYS)
+    assert set(tscene.kind_groups) == set(jscene.kind_groups)
+    for key, grp in jscene.kind_groups.items():
+        for f in ("pairs", "slots"):
+            np.testing.assert_array_equal(tscene.kind_groups[key][f], grp[f])
+    assert len(tscene.arts) == len(jscene.arts)
+    for te, je in zip(tscene.arts, jscene.arts):
+        assert (te.name, te.gc_off, te.q_off, te.v_off) == (
+            je.name, je.gc_off, je.q_off, je.v_off)
+        tm, jm = te.model, je.model
+        assert (tm.parent, tm.jtype, tm.q_off, tm.v_off, tm.floating) == (
+            jm.parent, jm.jtype, jm.q_off, jm.v_off, jm.floating)
+        np.testing.assert_array_equal(tm.I_link, np.asarray(jm.I_link))
+        for tl, jl in zip(tm.links, jm.links):
+            assert (tl.name, tl.mass) == (jl.name, jl.mass)
+            for f in ("Xt_E", "Xt_r", "axis", "axis2", "lo", "hi", "tare"):
+                a, b = getattr(tl.joint, f), getattr(jl.joint, f)
+                assert (a is None) == (b is None), f
+                if a is not None:
+                    np.testing.assert_array_equal(a, np.asarray(b), err_msg=f)
+            assert tl.joint.restitution == jl.joint.restitution

@@ -121,9 +121,11 @@ def test_step_refuses_other_device_and_unported_models():
         b.set_contact_params("ground", "ball", cp)
         return b.compile(device="cpu")
 
+    # the no-slip model (every mu >= 100) is ported: it steps
     noslip, st2 = one_pair(tsc.ContactParams(mu_coulomb=200.0))
-    with pytest.raises(NotImplementedError, match="no-slip"):
-        tstep.step(noslip, st2, DT, device="cpu")
+    assert noslip.use_noslip
+    st2 = tstep.step(noslip, st2, DT, device="cpu")
+    assert torch.isfinite(st2.pos).all() and float(st2.time[0]) == pytest.approx(DT)
     nqp, st3 = one_pair(tsc.ContactParams(mu_coulomb=0.5, nk=0))
     with pytest.raises(NotImplementedError, match="NQP"):
         tstep.step(nqp, st3, DT, device="cpu")
