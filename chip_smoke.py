@@ -50,7 +50,33 @@ It needs no network and no JAX. Phases, each of which fails the run:
 7. mpcparity — the same task at B=8: card float32 through the kernel route
              against the port on the CPU in float64 through the batched
              route.
-8. art     — the articulated path at full width: the repo's
+8. block   — block-push MPC (`examples/block_push_mpc.py`: a 0.2 m cube on a
+             plane, mu=0.3, nk=4, so the QP-KKT LCP has n=64 and reaches
+             `bpp_lcp`'s block path), float32: (a) `contact_mpc.solve` at the
+             example's own settings (one scenario, H=30, dt=0.02, 12
+             iterations, target (0.6, 0.3)); (b) `solve_batch` at B=1024 with
+             x and y jitter in [-0.05, 0.05) m from `--seed`, H=30, 4
+             iterations, in five modes: rr (the default), rr with the hoisted
+             linearization, rr with forward-mode linearization (the block
+             linearizer), both, and rr with the bfloat16 Riccati form. For
+             each: solves/s, the launches and idle share of a one-iteration
+             solve, peak device memory, the hoist's chunk count, and
+             `bpp_lcp`'s launches (counts set to 0 just before, read just
+             after) and calls with work. With the kernels phase, `bpp_lcp`
+             is then held against `bpp_lcp_plain` on the recorded n=64 LCPs
+             (by the QP's primal velocity change H·x; z on M + 0.05·I) and
+             timed on them.
+9. blockparity — (a)'s card solve against the port's CPU float64 solve of
+             the same state (cost within 0.005 of the initial cost, final xy
+             within 3 cm); every mode of (b): no NaN cost, no member above
+             its start, median |c - c_rr| / c0 within 1e-3 (hoisted and
+             forward modes) or 5e-3 (bf16), c0 the zero-control cost.
+10. artmpc — the articulated MPC step: the double pendulum of
+             `examples/double_pendulum.py` with its first joint limited at
+             0.5 rad, B=256 scenarios past the stop and moving into it:
+             `dstep`, its `_jacobians` and the block linearizer `f_jac`,
+             card float32 against CPU float64.
+11. art     — the articulated path at full width: the repo's
              `scenes/fixed-articulated-table.xml` (a floating table of five
              boxes on a plane, mu = inf: the no-slip model) loaded by
              `io.mobyxml.load` on the card, float32, B=512 scenarios with
@@ -64,8 +90,8 @@ It needs no network and no JAX. Phases, each of which fails the run:
              the kernels phase, `ppm_lcp` is then held against
              `ppm_lcp_plain` on the problems this run recorded, float32 and
              float64.
-9. artparity — card float32 against the port on the CPU in float64: the
-             table at B=4 over 200 steps (max |q_art| drift at 0.2 s below
+12. artparity — card float32 against the port on the CPU in float64: the
+             table at B=4 over 100 steps (max |q_art| drift at 0.1 s below
              5e-3), and the limited pendulum of the repo's articulated tests
              (stop at 0.5 rad) from q=1 over 800 steps (min q above
              0.5 - 1e-3, max |q| drift below 2e-2).
@@ -78,8 +104,8 @@ step's recorded stage-1 problems. Output: a `{"kernels": [...]}` JSON line,
 the card's name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device the script exits with a non-zero code and no result.
-`--phases kernels`, `--phases mpc` or `--phases art` are the short runs (no
-result line).
+`--phases kernels`, `--phases mpc`, `--phases block,blockparity,artmpc` or
+`--phases art` are the short runs (no result line).
 """
 
 import argparse
@@ -93,7 +119,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernels", "step", "parity", "mpc", "mpcparity",
-          "art", "artparity")
+          "block", "blockparity", "artmpc", "art", "artparity")
 BATCH = 512          # scenarios of the full-width step
 MPC_BATCH = 1536     # scenarios of the full-width contact-MPC solve
 MPC_HORIZON = 50     # steps of dt = MPC_DT in the MPC's horizon
@@ -116,11 +142,48 @@ ART_STEPS = 30
 ART_WARMUP = 2
 ART_DT = 1e-3        # the JAX package's on-device smoke step (tpu_smoke.py:146)
 ART_PARITY_BATCH = 4
-ART_PARITY_STEPS = 200
-ART_DRIFT_LIMIT = 5e-3      # max |q_art| drift at 0.2 s (tpu_smoke.py:154)
-PEND_STEPS = 800
+# 100 and 400 steps, not 200 and 800: with the block-push phases a full run
+# on a slower host came to about 1,010 s of the 1,200 allowed (PERF.md §6)
+ART_PARITY_STEPS = 100
+ART_DRIFT_LIMIT = 5e-3      # max |q_art| drift at the end (tpu_smoke.py:154: at 0.2 s)
+PEND_STEPS = 400
 PEND_MIN_Q = 0.5 - 1e-3     # the JAX test's own bound (test_joint_limit_stops)
 PEND_DRIFT_LIMIT = 2e-2     # max |q| drift over the 800 steps
+# block-push (`examples/block_push_mpc.py`): the example's own settings for
+# the single solve, then BLOCK_BATCH scenarios in every mode
+BLOCK_HORIZON = 30
+BLOCK_DT = 0.02
+BLOCK_TARGET = (0.6, 0.3)
+BLOCK_SINGLE_ITERS = 12
+BLOCK_BATCH = 1024
+BLOCK_ITERS = 4
+BLOCK_JITTER = 0.05         # x and y jitter of the batch's blocks, metres
+BLOCK_MODES = (
+    ("rr", {}),
+    ("rr_hoist", {"hoist_linearization": True}),
+    ("rr_fwd", {"linearize_fwd": True}),
+    ("rr_fwd_hoist", {"linearize_fwd": True, "hoist_linearization": True}),
+    ("rr_bf16", {"bf16": True}),
+)
+# limits on the task's scale (PERF.md §2): every solve ends 99.6-99.9%
+# below the zero-control cost c0, at final costs that rounding moves by
+# percents, because the IFT derivative of block-push's degenerate LCPs
+# depends on rounding and on the dtype's Tikhonov shift. The single solve,
+# card float32 against CPU float64: the cost within BLOCK_PARITY_OF_C0 of
+# c0 and the final xy within BLOCK_PARITY_XY; each mode of the batched
+# solve against rr: the median over members of |c_mode - c_rr| / c0
+BLOCK_PARITY_OF_C0 = 0.005
+BLOCK_PARITY_XY = 0.03          # metres
+BLOCK_MODE_OF_C0 = {"rr_hoist": 1e-3, "rr_fwd": 1e-3, "rr_fwd_hoist": 1e-3,
+                    "rr_bf16": 5e-3}
+ART_MPC_BATCH = 256
+ART_MPC_DT = 0.01
+# card float32 against CPU float64 on the limited double pendulum: the
+# step's state (absolute, entries of order 1) and its Jacobians (relative to
+# their largest entry: the IFT inverse's Tikhonov shift is sqrt(eps)·‖M‖∞,
+# 3.4e-4·‖M‖∞ in float32, which moves these Jacobians by 7e-4 of their scale
+# in a float32 run on the CPU)
+ART_MPC_TOL = {"dstep": 1e-4, "jacobian": 5e-3}
 SOURCE = "moby_tpu_torch/csrc/ppm_lcp.cu"
 REPLACES = "moby_tpu/solvers/pallas_lcp.py:226"   # ppm_lcp_one's pl.pallas_call
 BPP_SOURCE = "moby_tpu_torch/csrc/bpp_lcp.cu"
@@ -932,11 +995,12 @@ def phase_mpc():
     return launches, recorded, B / elapsed
 
 
-def mpc_device_share(solve_fn, seconds):
+def mpc_device_share(solve_fn, seconds, tag="mpc", out=None):
     """Where a short solve's time goes: its device time by kernel name
     (torch.profiler, device activity only: a solve is some 10^5 launches)
-    against its unprofiled time measured just before. A reading, not a
-    check."""
+    against its unprofiled time `seconds` (None: measured later by the
+    caller). A reading, not a check: the device seconds and the launches go
+    into `out` ("busy", "kernels")."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -946,14 +1010,17 @@ def mpc_device_share(solve_fn, seconds):
             for ev in prof.key_averages() if ev.self_device_time_total > 0]
     busy = sum(r[1] for r in rows) / 1e6
     if busy <= 0:
-        log("[mpc] device time per solve: not measured (profiler saw no kernel)")
+        log(f"[{tag}] device time per solve: not measured (profiler saw no kernel)")
         return
     n_kernels = sum(r[2] for r in rows)
-    log(f"[mpc] one-iteration solve of the batch: device busy {busy * 1e3:.1f} ms of "
-        f"{seconds * 1e3:.1f} ms (idle share {1.0 - busy / seconds:.3f}), "
-        f"{n_kernels} kernel launches")
+    if out is not None:
+        out.update(busy=busy, kernels=n_kernels)
+    share = "" if seconds is None else (
+        f" of {seconds * 1e3:.1f} ms (idle share {1.0 - busy / seconds:.3f})")
+    log(f"[{tag}] one-iteration solve of the batch: device busy {busy * 1e3:.1f} ms"
+        f"{share}, {n_kernels} kernel launches")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
-        log(f"[mpc]   {us / 1e3:9.3f} ms {count:8d} launches  {key[:90]}")
+        log(f"[{tag}]   {us / 1e3:9.3f} ms {count:8d} launches  {key[:90]}")
 
 
 def phase_mpc_parity():
@@ -982,6 +1049,341 @@ def phase_mpc_parity():
     assert rel <= MPC_PARITY_RTOL, f"mpcparity: mean costs differ by {rel:.3e}"
     return rel
 
+# ---------------------------------------------------------------- block-push
+def build_blockpush(device, dtype=None):
+    """The block-push scene of `examples/block_push_mpc.py`: a 0.2 m cube of
+    1 kg resting on a plane, mu=0.3, nk=4 (8 vertex slots; its QP-KKT LCP has
+    n=64, the block path of `bpp_lcp`)."""
+    from moby_tpu_torch.core import scene as sc
+    from moby_tpu_torch.math import quaternion as quat
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("block", mass=1.0, inertia=sc.box_inertia(1.0, 0.2, 0.2, 0.2),
+               pos=np.array([0.0, 0.0, 0.2]))
+    b.add_geom("block", sc.BOX, [0.2, 0.2, 0.2])
+    b.add_body("ground", enabled=False)
+    pq = quat.from_rpy(
+        torch.tensor([1.5707963267949, 0, 0], dtype=torch.float64)).numpy()
+    b.add_geom("ground", sc.PLANE, [0.0], quat=pq)
+    b.set_contact_params("ground", "block", sc.ContactParams(mu_coulomb=0.3, nk=4))
+    return b.compile(device=device, dtype=dtype)
+
+
+def blockpush_task(device, B, seed, dtype=None):
+    """The example's task: push the block to BLOCK_TARGET at the end of the
+    horizon with small control effort. B scenarios; with a seed, each block
+    starts moved in x and y by numpy-drawn jitter in [-BLOCK_JITTER,
+    BLOCK_JITTER)."""
+    from moby_tpu_torch.mpc import contact_mpc
+
+    scene, st = build_blockpush(device, dtype)
+    prob = contact_mpc.MPCProblem(scene=scene, template=st, dt=BLOCK_DT,
+                                  horizon=BLOCK_HORIZON)
+    states = st.expand(B)
+    if seed is not None:
+        d = np.random.default_rng(seed).uniform(-BLOCK_JITTER, BLOCK_JITTER, size=(B, 2))
+        pos = states.pos.clone()
+        pos[:, 0, :2] += torch.tensor(d, dtype=pos.dtype, device=pos.device)
+        states = states.replace(pos=pos)
+    target = torch.tensor(BLOCK_TARGET, dtype=st.pos.dtype, device=st.pos.device)
+
+    def cost(x, u):
+        return 1e-4 * (u[:, :6] ** 2).sum(dim=1)
+
+    def cost_final(x):
+        return 100.0 * ((x[:, 0:2] - target) ** 2).sum(dim=1)
+
+    return prob, states, cost, cost_final
+
+
+def counting_bpp(record=None, keep=8):
+    """A stand-in for `hopper_lcp.bpp_lcp` that tallies on the device (no
+    synchronisation) the calls and problems with work, and keeps every 25th
+    stage-1 call (the first of each cascade of four) in `record`, up to
+    `keep`. The real wrapper counts its launches on the function that
+    `hopper_lcp.bpp_lcp` names, so the stand-in carries the count."""
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    wrapper = hopper_lcp.bpp_lcp
+    tally = {k: torch.zeros((), dtype=torch.int64, device=DEVICE)
+             for k in ("calls_with_work", "problems_with_work")}
+
+    def call(M, q, mask, z0=None, max_bpp=24, max_piv=None, check_tol=None):
+        work = mask.any(dim=1)
+        tally["calls_with_work"] += work.any()
+        tally["problems_with_work"] += work.sum()
+        if record is not None and call.launches % 100 == 0 and len(record) < keep:
+            record.append((M, q, mask, z0, max_bpp, check_tol))
+        return wrapper(M, q, mask, z0=z0, max_bpp=max_bpp, max_piv=max_piv,
+                       check_tol=check_tol)
+
+    call.launches = 0
+    hopper_lcp.bpp_lcp = call
+
+    def restore():
+        hopper_lcp.bpp_lcp = wrapper
+        return {k: int(v) for k, v in tally.items()}
+
+    return call, restore
+
+
+def phase_block(seed):
+    """Block-push MPC on the card: (a) `contact_mpc.solve` at the example's
+    own settings, (b) `solve_batch` at BLOCK_BATCH in every mode of
+    BLOCK_MODES. Returns what blockparity and the kernel checks need."""
+    from moby_tpu_torch.mpc import contact_mpc
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    # (a) the example: one scenario, H=30, 12 iterations
+    prob, st, cost, cost_final = blockpush_task(DEVICE, 1, None)
+    n = prob.scene.n_lcp
+    assert st.pos.dtype == torch.float32 and n == 64, n
+    for B in (1, 8, 13):
+        assert hopper_lcp.launch_plan(n, torch.float32, B).path == "block"
+    c0 = float(contact_mpc.solve(prob, st, cost, cost_final, n_iters=0,
+                                 device=DEVICE).cost)
+    hopper_lcp.bpp_lcp.launches = 0
+    t0 = time.time()
+    res = contact_mpc.solve(prob, st, cost, cost_final, n_iters=BLOCK_SINGLE_ITERS,
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    single_s = time.time() - t0
+    single_launches = hopper_lcp.bpp_lcp.launches
+    assert res.xs.shape == (BLOCK_HORIZON + 1, 13) and res.us.shape == (BLOCK_HORIZON, 6)
+    assert torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+    cost_a = float(res.cost)
+    xy = [float(v) for v in res.xs[-1, :2]]
+    log(f"[block] (a) solve, H={BLOCK_HORIZON} dt={BLOCK_DT} iters={BLOCK_SINGLE_ITERS} "
+        f"float32 n_lcp={n}: final block xy {xy[0]:.4f} {xy[1]:.4f} (target "
+        f"{BLOCK_TARGET}), cost {cost_a:.6f} (initial {c0:.4f}), {single_s:.2f} s, "
+        f"bpp_lcp launches {single_launches}")
+    assert single_launches > 0, "block: the single solve never launched bpp_lcp"
+    assert cost_a < c0, "block: the single solve did not lower the cost"
+    assert float(res.xs[:, 2].min()) > 0.2 - 5e-3, "block: the block sank into the plane"
+
+    # (b) solve_batch in every mode
+    from moby_tpu_torch.mpc import MPCOptions
+
+    B = BLOCK_BATCH
+    prob, states, cost, cost_final = blockpush_task(DEVICE, B, seed)
+    c0s = contact_mpc.solve_batch(prob, states, cost, cost_final, n_iters=0,
+                                  device=DEVICE).cost
+    modes, recorded = {}, []
+    for name, kw in BLOCK_MODES:
+        kw = dict(kw)
+        if kw.pop("bf16", False):
+            kw["options"] = MPCOptions(riccati_bf16=True)
+
+        def solve(n_iters):
+            return contact_mpc.solve_batch(prob, states, cost, cost_final,
+                                           n_iters=n_iters, device=DEVICE, **kw)
+
+        # the launches and device time of a one-iteration solve (the first
+        # call: the profiler reads device time only, so the host's first-call
+        # work does not enter), then its unprofiled wall time
+        busy = {}
+        mpc_device_share(lambda: solve(1), None, tag=f"block {name}", out=busy)
+        t0 = time.time()
+        solve(1)
+        torch.cuda.synchronize()
+        short = time.time() - t0
+        idle = None if busy.get("busy") is None else 1.0 - busy["busy"] / short
+        kernels = busy.get("kernels")
+        log(f"[block {name}] one-iteration solve: {short * 1e3:.1f} ms unprofiled, "
+            f"idle share {idle if idle is None else round(idle, 3)}, {kernels} kernel launches")
+        # the timed solve: counts to 0 just before, read just after
+        call, restore = counting_bpp(recorded if name == "rr" else None)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = solve(BLOCK_ITERS)
+        torch.cuda.synchronize()
+        elapsed = time.time() - t0
+        launches = call.launches
+        work = restore()
+        peak = torch.cuda.max_memory_allocated()
+        chunks = (contact_mpc.hoist_chunks(prob.scene, B, BLOCK_HORIZON, torch.float32,
+                                           kw.get("linearize_fwd", False))
+                  if kw.get("hoist_linearization") else None)
+        nan = int((~torch.isfinite(res.cost)).sum())
+        worse = int((res.cost > c0s).sum())
+        fell = float((res.cost < c0s).double().mean())
+        modes[name] = {
+            "solves_per_s": B / elapsed, "seconds": elapsed,
+            "one_iteration_s": short, "one_iteration_launches": kernels,
+            "one_iteration_idle_share": idle, "peak_bytes": peak,
+            "hoist_chunks": chunks, "bpp_lcp_launches": launches, **work,
+            "nan_costs": nan, "above_start": worse, "cost": res.cost.double().cpu(),
+        }
+        log(f"[block] (b) {name}: B={B} H={BLOCK_HORIZON} iters={BLOCK_ITERS}: "
+            f"{elapsed:.2f} s, {B / elapsed:.1f} solves/s; peak device memory "
+            f"{peak / 2 ** 30:.2f} GiB; hoist chunks {chunks}; bpp_lcp launches "
+            f"{launches}, with work {work['calls_with_work']} (problems with work "
+            f"{work['problems_with_work']}); cost mean {float(res.cost.mean()):.4f} "
+            f"(initial {float(c0s.mean()):.4f}), fell for {fell:.3f}, NaN {nan}, "
+            f"above start {worse}")
+        assert launches > 0, f"block {name}: the solve never launched bpp_lcp"
+    return {"single": {"cost": cost_a, "xy": xy, "seconds": single_s, "c0": c0,
+                       "launches": single_launches},
+            "c0": c0s.double().cpu(), "modes": modes, "recorded": recorded,
+            "launches": single_launches + sum(m["bpp_lcp_launches"]
+                                              for m in modes.values())}
+
+
+def phase_block_parity(block):
+    """(a)'s card cost against the port's CPU float64 solve of the same
+    state; every mode of (b) against the limits of BLOCK_MODE_RTOL."""
+    from moby_tpu_torch.mpc import contact_mpc
+
+    prob, st, cost, cost_final = blockpush_task("cpu", 1, None)
+    assert st.pos.dtype == torch.float64
+    t0 = time.time()
+    res = contact_mpc.solve(prob, st, cost, cost_final, n_iters=BLOCK_SINGLE_ITERS,
+                            device="cpu")
+    c_cpu, c_gpu = float(res.cost), block["single"]["cost"]
+    c0 = block["single"]["c0"]
+    of_c0 = abs(c_gpu - c_cpu) / c0
+    xy_cpu = [float(v) for v in res.xs[-1, :2]]
+    dxy = float(np.hypot(*np.subtract(block["single"]["xy"], xy_cpu)))
+    log(f"[blockparity] (a) cost card float32 {c_gpu:.6f}, CPU float64 {c_cpu:.6f} "
+        f"({time.time() - t0:.1f} s): difference {of_c0:.3e} of the initial cost "
+        f"{c0:.4f} (limit {BLOCK_PARITY_OF_C0}), relative to the CPU's "
+        f"{abs(c_gpu - c_cpu) / abs(c_cpu):.3e}; final xy card {block['single']['xy']}, "
+        f"CPU {xy_cpu}: {dxy:.4f} m apart (limit {BLOCK_PARITY_XY})")
+    assert of_c0 <= BLOCK_PARITY_OF_C0, f"blockparity: (a) costs differ by {of_c0:.3e} of c0"
+    assert dxy <= BLOCK_PARITY_XY, f"blockparity: (a) final positions {dxy:.4f} m apart"
+    ref, c0s = block["modes"]["rr"]["cost"], block["c0"]
+    out = {"single_of_c0": of_c0, "single_xy": dxy}
+    for name, m in block["modes"].items():
+        assert m["nan_costs"] == 0, f"blockparity: {name} has {m['nan_costs']} NaN costs"
+        assert m["above_start"] == 0, (
+            f"blockparity: {name} has {m['above_start']} members above their start")
+        if name == "rr":
+            continue
+        diff = (m["cost"] - ref).abs()
+        med = float((diff / c0s).median())
+        out[name] = med
+        log(f"[blockparity] (b) {name}: median |c - c_rr| / c0 = {med:.3e} (limit "
+            f"{BLOCK_MODE_OF_C0[name]}); median |c - c_rr| / |c_rr| = "
+            f"{float((diff / ref.abs()).median()):.3e}; mean cost {float(m['cost'].mean()):.4f} "
+            f"against rr's {float(ref.mean()):.4f}")
+        assert med <= BLOCK_MODE_OF_C0[name], f"blockparity: {name} off rr by {med:.3e} of c0"
+    return out
+
+
+def phase_kernels_block(block):
+    """`bpp_lcp` against `bpp_lcp_plain` on block-push's recorded n=64 LCPs
+    (stage-1 calls of the rr mode's timed solve), float32 as recorded and
+    float64: by the velocity change in the QP's variables (z is not unique:
+    four coplanar contacts; `check_qp_velocity_case`), and by z on
+    M + 0.05·I. Also how many of their problems reach the PPM stage. Returns
+    the largest z error."""
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    work = [r for r in block["recorded"] if bool(r[2].any())]
+    picks = work[:1]
+    assert picks, "block: no recorded call had a problem with work"
+    scene = build_blockpush("cpu")[0]
+    nv = 5 * scene.n_contacts + scene.n_limits      # x = [cn, cs, ct, ncs, nct, l]
+    worst = 0.0
+    reach = {"calls": len(work), "with_work": 0, "ppm": 0}
+    for (M, q, mask, z0, mb, tol) in work:
+        _, _, its, piv, _ = hopper_lcp.bpp_lcp_plain(M, q, mask, z0=z0, max_bpp=mb,
+                                                     check_tol=tol, with_pivots=True)
+        has_work = mask.any(dim=1)
+        reach["with_work"] += int(has_work.sum())
+        reach["ppm"] += int((has_work & (piv > 0)).sum())
+    for dtype in (torch.float32, torch.float64):
+        def cast(t):
+            return None if t is None else t.to(dtype).contiguous()
+
+        for i, (M, q, mask, z0, mb, tol) in enumerate(picks):
+            M, q, z0 = cast(M), cast(q), cast(z0)
+            kw = dict(max_bpp=mb) if dtype == torch.float64 else dict(max_bpp=mb,
+                                                                       check_tol=tol)
+            check_qp_velocity_case(f"block-push call {i} as handed", M, q, mask, z0,
+                                   nv, **kw)
+            Mr = (M + 0.05 * torch.diag_embed(mask.to(dtype))).contiguous()
+            e, _, _ = check_case(f"block-push call {i} + 0.05 I", Mr, q, mask, z0,
+                                 solver="bpp", max_bpp=mb)
+            worst = max(worst, e)
+    log(f"[kernels] block-push: of {reach['with_work']} problems with work in "
+        f"{len(work)} recorded stage-1 calls, {reach['ppm']} reached the PPM stage")
+    block["ppm_reach"] = reach
+    return worst
+
+
+# ---------------------------------------------------------- articulated MPC
+def double_pendulum(device, dtype=None):
+    """The double pendulum of `examples/double_pendulum.py` (two 1 m rods of
+    1 kg on revolute joints about z, gravity along -y), its first joint
+    limited to [0.5, 3.0] as in the repo's limited-pendulum tests."""
+    from moby_tpu_torch.core import scene as sc
+    from moby_tpu_torch.dynamics import model as mdl
+
+    def link(name, parent_r, lo=None, hi=None):
+        j = mdl.JointDef(jtype=mdl.REVOLUTE, Xt_E=np.eye(3), Xt_r=parent_r,
+                         axis=np.array([0.0, 0, 1]),
+                         lo=None if lo is None else np.array([lo]),
+                         hi=None if hi is None else np.array([hi]))
+        return mdl.LinkDef(name=name, mass=1.0, com=np.array([0.0, -0.5, 0.0]),
+                           inertia_com=np.diag([1.0 / 12, 1e-12, 1.0 / 12]), joint=j)
+
+    m = mdl.ArticulatedModel([link("l1", np.zeros(3), lo=0.5, hi=3.0),
+                              link("l2", np.array([0.0, -1.0, 0.0]))], floating=False)
+    m.set_parents([-1, 0])
+    b = sc.SceneBuilder()
+    b.set_gravity([0, -9.81, 0])
+    b.add_articulated("dp", m, q0=np.array([0.5, 0.0]))
+    return b.compile(device=device, dtype=dtype)
+
+
+def phase_art_mpc(seed):
+    """The articulated MPC step on the card at ART_MPC_BATCH: `dstep` (through
+    `make_dynamics`), the `_jacobians` linearization and the block
+    linearizer `f_jac` (forward mode over u: the scene is articulated), card
+    float32 against the port on the CPU in float64. Every scenario starts
+    past the first joint's stop and moving into it, so the limit rows of the
+    LCP have work."""
+    from moby_tpu_torch.mpc import contact_mpc, ilqr
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    B = ART_MPC_BATCH
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.uniform(0.45, 0.49, B), rng.normal(0.3, 0.5, B),
+                  rng.uniform(-1.0, -0.1, B), rng.normal(0.0, 1.0, B)], axis=1)
+    u = rng.normal(0.0, 3.0, (B, 2))
+    out = {}
+    for device in (DEVICE, "cpu"):
+        scene, st = double_pendulum(device)
+        f, f_rec, f_rep = contact_mpc.make_dynamics_rr(scene, st, ART_MPC_DT)
+        xt = torch.tensor(x, dtype=st.q_art.dtype, device=device)
+        ut = torch.tensor(u, dtype=st.q_art.dtype, device=device)
+        hopper_lcp.bpp_lcp.launches = 0
+        y = f(xt, ut)
+        A, Bm = ilqr._jacobians(f, xt, ut)
+        _, z, _ = f_rec(xt, ut, f_rec.aux_init(B))
+        Aj, Bj = f_rep.jac(xt, ut, z)
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            launches = hopper_lcp.bpp_lcp.launches
+        out[device] = [t.double().cpu() for t in (y, A, Bm, Aj, Bj, z)]
+    gpu, cpu = out[DEVICE], out["cpu"]
+    assert all(bool(torch.isfinite(t).all()) for t in gpu)
+    assert float(cpu[5].abs().max()) > 1e-3, "artmpc: the limit did not act"
+    errs = {"dstep": float((gpu[0] - cpu[0]).abs().max())}
+    for i, name in enumerate(("A", "B", "f_jac A", "f_jac B"), start=1):
+        errs[name] = float((gpu[i] - cpu[i]).abs().max()) / float(cpu[i].abs().max())
+    log(f"[artmpc] limited double pendulum B={B} dt={ART_MPC_DT}, n_lcp="
+        f"{double_pendulum('cpu')[0].n_lcp}: card float32 against CPU float64, max "
+        f"differences (the step absolute, the Jacobians relative to their largest "
+        f"entry) {errs}; bpp_lcp launches {launches}; limit impulses "
+        f"up to {float(cpu[5].abs().max()):.3f}")
+    assert launches > 0, "artmpc: the step never launched bpp_lcp"
+    assert errs["dstep"] <= ART_MPC_TOL["dstep"], errs
+    for name in ("A", "B", "f_jac A", "f_jac B"):
+        assert errs[name] <= ART_MPC_TOL["jacobian"], errs
+    return errs
 
 
 def phase_parity():
@@ -1200,6 +1602,47 @@ def check_velocity_case(name, M, q, mask, z0):
     return err
 
 
+def check_qp_velocity_case(name, M, q, mask, z0, nv, **kw):
+    """`bpp_lcp` against `bpp_lcp_plain` on block-push's QP-KKT LCPs
+    [[H, -Gᵀ], [G, 0]] (x = z[:nv] the QP's nonnegative impulse variables,
+    H = DᵀAD with A the Delassus matrix), whose z is not unique: four
+    coplanar contacts, so pivot ties are decided by rounding. Every problem
+    either version calls done satisfies complementarity; in float32, the
+    card's dtype, both call the same problems done; where both are done, the
+    velocity change in the QP's variables, H·x (unique for exact solutions
+    of a convex QP, where the multiplier rows of M·z are not), must agree
+    within 2·sqrt(‖M‖∞·ztol·‖z‖∞), the spread of two bases accepted at the
+    pivoting's zero tolerance ztol = m·‖M‖∞·eps. In float64 ties are exact
+    more often and decide whether a chain finishes within its iteration and
+    pivot caps, in either version (PERF.md §6): `done` is read, not
+    held. Returns the largest ratio of the difference to the bound."""
+    from moby_tpu_torch.solvers import lcp
+
+    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0, solver="bpp", **kw)
+    both = dk & dp & mask.any(dim=1)
+    if M.dtype == torch.float32:
+        assert bool((dk == dp).all()), (
+            f"{name}: done differs on {int((dk != dp).sum())} of {len(dk)} problems")
+    Mp, _ = lcp.pad_lcp(M, q, mask)
+    dv = (Mp[:, :nv, :nv] @ (zk - zp)[:, :nv, None])[..., 0].abs().amax(dim=1)
+    nrm = lcp._masked_norm_inf(Mp, mask)
+    ztol = mask.sum(dim=1) * nrm * torch.finfo(M.dtype).eps
+    zmax = torch.maximum(zk.abs().amax(dim=1), zp.abs().amax(dim=1))
+    bound = 2.0 * torch.sqrt(nrm * ztol * zmax).clamp_min(torch.finfo(M.dtype).tiny)
+    if not bool(both.any()):
+        log(f"[kernels] {name:44s} {str(M.dtype)[6:]:8s} B={M.shape[0]} n={M.shape[1]} "
+            f"done kernel={int(dk.sum())} plain={int(dp.sum())}: none done in both")
+        return 0.0
+    ratio = float((dv / bound)[both].max())
+    full = float((Mp @ (zk - zp)[..., None])[..., 0].abs().amax(dim=1)[both].max())
+    log(f"[kernels] {name:44s} {str(M.dtype)[6:]:8s} B={M.shape[0]} n={M.shape[1]} "
+        f"done kernel={int(dk.sum())} plain={int(dp.sum())} differ={int((dk != dp).sum())}: "
+        f"H·x err={float(dv[both].max()):.3e}, {ratio:.3f} of its bound (median bound "
+        f"{float(bound[both].median()):.3e}); M·z err={full:.3e}")
+    assert ratio <= 1.0, f"{name}: H·x differs by {ratio:.3f} of its bound"
+    return ratio
+
+
 def phase_kernels_art(art):
     """`ppm_lcp` against `ppm_lcp_plain` on the LCPs the table path recorded
     (n = 40, the block path), float32 as recorded and float64: the calls as
@@ -1273,9 +1716,10 @@ def phase_art_parity(seed):
     drift = (qa[DEVICE] - qa["cpu"]).abs().amax(dim=(1, 2))
     d02 = float(drift[ART_PARITY_STEPS - 1])
     log(f"[artparity] table B={B} steps={ART_PARITY_STEPS}: max |q_art| drift "
-        f"{d02:.3e} at 0.2 s (largest over the run {float(drift.max()):.3e}, at "
+        f"{d02:.3e} at {ART_PARITY_STEPS * ART_DT:.1f} s (largest over the run "
+        f"{float(drift.max()):.3e}, at "
         f"10 steps {float(drift[9]):.3e})")
-    assert d02 < ART_DRIFT_LIMIT, f"artparity: table drift {d02:.3e} at 0.2 s"
+    assert d02 < ART_DRIFT_LIMIT, f"artparity: table drift {d02:.3e} at the end"
 
     qp = {}
     for device in (DEVICE, "cpu"):
@@ -1542,6 +1986,42 @@ def measure_bpp(mpc_recorded, stage1, launches, max_err):
     return entry
 
 
+def measure_block_kernel(block):
+    """`bpp_lcp` on block-push's recorded stage-1 calls with work (n=64, the
+    block path): the wrapper call beside the batched pair, the plain version
+    and the bound; the kernel alone from the profiler; the launch floor."""
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    picks = [r for r in block["recorded"] if bool(r[2].any())][:1]
+    out = {"launches": block["launches"],
+           "launches_by_mode": {k: m["bpp_lcp_launches"] for k, m in block["modes"].items()},
+           "calls_with_work_by_mode": {k: m["calls_with_work"]
+                                       for k, m in block["modes"].items()},
+           "single_solve_launches": block["single"]["launches"],
+           "ppm_reach": block.get("ppm_reach"),
+           "path": hopper_lcp.launch_plan(64, torch.float32, BLOCK_BATCH).path}
+    if not picks:
+        log("[timing] bpp_lcp on block-push: no recorded call had work")
+        return out
+    out["timed_on"] = time_bpp_on(picks, f"{len(picks)} of block-push's stage-1 calls "
+                                         f"with work (B={BLOCK_BATCH}, n=64)")
+    M0, q0, m0, z00, mb0, t0 = picks[0]
+    out["device_ms"] = device_ms(
+        lambda: hopper_lcp.bpp_lcp(M0, q0, m0, z0=z00, max_bpp=mb0, check_tol=t0),
+        kernel="bpp_lcp_")
+    none = torch.zeros_like(m0)
+    out["launch_floor"] = {
+        "shape": f"B={m0.shape[0]} n={m0.shape[1]} all-false mask",
+        "device_ms": device_ms(
+            lambda: hopper_lcp.bpp_lcp(M0, q0, none, z0=z00, max_bpp=mb0, check_tol=t0),
+            kernel="bpp_lcp_"),
+        "bound_ms": bound_ms(M0, none, None, torch.zeros(len(m0), device=DEVICE),
+                             torch.zeros((0, len(m0)), device=DEVICE))[0],
+    }
+    log(f"[timing] bpp_lcp on block-push: {out['device_ms']} ms on the device; "
+        f"launch floor {out['launch_floor']}")
+    return out
+
 
 def measure_kernel(recorded, launches, max_err):
     """Time the kernel on the inputs the main path gave it (up to 48 of the
@@ -1659,6 +2139,17 @@ def main():
     if "mpcparity" in phases:
         phase_mpc_parity()
     lap("mpc, mpcparity")
+    block = phase_block(args.seed) if "block" in phases else None
+    lap("block")
+    if block is not None and "blockparity" in phases:
+        phase_block_parity(block)
+        lap("blockparity")
+    if block is not None and "kernels" in phases:
+        bpp_err = max(bpp_err, phase_kernels_block(block))
+        lap("kernels on block-push's LCPs")
+    if "artmpc" in phases:
+        phase_art_mpc(args.seed)
+        lap("artmpc")
     art = phase_art(args.seed) if "art" in phases else None
     lap("art")
     if "artparity" in phases:
@@ -1681,18 +2172,31 @@ def main():
         entries.append(entry)
     elif table_path is not None:
         log(f"[timing] ppm_lcp on the table path: {json.dumps(table_path)}")
+    block_path = measure_block_kernel(block) if block is not None else None
     if mpc_recorded:
-        entries.append(measure_bpp(mpc_recorded, stage1, mpc_launches, bpp_err))
+        entry = measure_bpp(mpc_recorded, stage1, mpc_launches, bpp_err)
+        if block_path is not None:
+            # ball-push's and block-push's runs, each counted from 0
+            entry["launches_by_path"] = {"ballpush": mpc_launches,
+                                         "blockpush": block["launches"]}
+            entry["launches"] = mpc_launches + block["launches"]
+            entry["block_path"] = block_path
+        entries.append(entry)
+    elif block_path is not None:
+        log(f"[timing] bpp_lcp on the block-push path: {json.dumps(block_path)}")
     if full_run:
         assert len(entries) == 2 and all(e["launches"] > 0 for e in entries), (
             "a kernel of the main paths was never launched")
         assert art["launches"] > 0, "the table path never launched ppm_lcp"
+        assert block["launches"] > 0, "the block-push path never launched bpp_lcp"
     lap("timing")
     if entries:
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.time() - t_start:.1f} s; scenario-steps/s at B={BATCH}: {rate}; "
-        f"MPC solves/s at B={MPC_BATCH}: {mpc_rate}; table scenario-steps/s at "
-        f"B={ART_BATCH}: {None if art is None else art['rate']}")
+        f"MPC solves/s at B={MPC_BATCH}: {mpc_rate}; block-push solves/s at "
+        f"B={BLOCK_BATCH}: "
+        f"{None if block is None else {k: round(m['solves_per_s'], 2) for k, m in block['modes'].items()}}; "
+        f"table scenario-steps/s at B={ART_BATCH}: {None if art is None else art['rate']}")
     log(card)
     if not full_run:
         log(f"partial run (phases: {phases}): no result line")

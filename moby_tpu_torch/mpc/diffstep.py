@@ -1,16 +1,19 @@
 """Differentiable contact dynamics step for MPC / trajectory optimization
-(counterpart of ``moby_tpu/mpc/diffstep.py``, free bodies).
+(counterpart of ``moby_tpu/mpc/diffstep.py``).
 
 The regression-faithful stepper (`sim.stepper.step`) has data-dependent
 loops (conservative advancement, stabilization) that block reverse-mode
 differentiation. This module provides the MPC-grade step: fixed step size
 (no CA sub-stepping — MPC steps are small), one impact solve through the
 IFT-differentiable LCP (`solvers.difflcp`), no stabilization loop. Controls
-enter as generalized forces u (B, scene.ngc): wrenches on free bodies.
+enter as generalized forces u (B, scene.ngc): wrenches on free bodies, then
+joint forces of the articulated bodies.
 
 Every array carries the batch of scenarios as its leading dimension. The
 step is differentiable by `torch.autograd`: the live solve and the replayed
-solve are `torch.autograd.Function`s, everything else is plain tensor code.
+solves are `torch.autograd.Function`s, everything else is plain tensor code.
+The replay through `solve_lcp_given_fwd` (`lcp_fwd=True`) is differentiable
+in forward mode as well (`torch.autograd.forward_ad`).
 """
 
 from __future__ import annotations
@@ -22,12 +25,13 @@ from ..core import scene as sc
 from ..geometry import narrowphase as nph
 from ..math import quaternion as quat
 from ..sim import impact, kinematics
-from ..sim.stepper import forward_dynamics_free
+from ..sim.stepper import articulated_qdd, forward_dynamics_free, integrate_art_q
 from ..solvers.difflcp import (
     DEFAULT_OPTIONS,
     MPCOptions,
     solve_lcp_diff_mpc,
     solve_lcp_given,
+    solve_lcp_given_fwd,
 )
 
 
@@ -44,13 +48,15 @@ def _diff_lcp(options: MPCOptions = DEFAULT_OPTIONS):
     return solver
 
 
-def _replay_lcp(z_rec, options: MPCOptions = DEFAULT_OPTIONS):
+def _replay_lcp(z_rec, options: MPCOptions = DEFAULT_OPTIONS, fwd=False):
     """LCP 'solver' that replays a recorded solution (same IFT gradients,
     zero pivot iterations). Only valid for single-solve scenes (all
-    restitution zero — the gated second solve would need its own record)."""
+    restitution zero — the gated second solve would need its own record).
+    fwd=True uses the forward-mode twin for forward-mode linearization."""
+    given = solve_lcp_given_fwd if fwd else solve_lcp_given
 
     def solver(M, q, mask, z0, skip=None):
-        return solve_lcp_given(M, q, mask, z_rec, options), _all_ok(q)
+        return given(M, q, mask, z_rec, options), _all_ok(q)
 
     return solver
 
@@ -64,23 +70,20 @@ def replay_ok(scene: sc.Scene) -> bool:
     return eps0 and lim0
 
 
-def _refuse_articulated(scene):
-    if scene.arts or scene.nv_art or scene.nq_art:
-        raise NotImplementedError(
-            "the articulated branch of the differentiable step is not ported yet")
-
-
 def dstep_pre(scene: sc.Scene, st: sc.State, dt, u=None) -> sc.State:
     """The smooth half of `dstep`: semi-implicit pose integration + forces
-    + dissipation — everything BEFORE contact resolution."""
-    _refuse_articulated(scene)
+    + dissipation — everything BEFORE contact resolution. Split out so the
+    block-sparse MPC linearizer (`contact_mpc`'s `f_jac`) can chain its
+    Jacobian with the contact half's. Articulated bodies take the joint
+    forces u[:, 6·nb:] through Featherstone's ABA."""
     B = st.pos.shape[0]
 
     # position integration (semi-implicit: old velocities)
     qdot = quat.deriv(st.quat, st.omega)
     pos = st.pos + st.vel * dt
     quat_b = quat.normalize(st.quat + qdot * dt)
-    st2 = st.replace(pos=pos, quat=quat_b)
+    q_art = integrate_art_q(scene, st.q_art, st.qd_art, dt)
+    st2 = st.replace(pos=pos, quat=quat_b, q_art=q_art)
 
     # forward dynamics with controls
     a_lin, a_ang = forward_dynamics_free(scene, st2.quat, st2.omega)
@@ -104,31 +107,39 @@ def dstep_pre(scene: sc.Scene, st: sc.State, dt, u=None) -> sc.State:
     vel = st2.vel + a_lin * dt
     omega = st2.omega + a_ang * dt
 
+    qd_art = st2.qd_art
+    if scene.nv_art:
+        tau = u[:, 6 * scene.nb:] if u is not None else None
+        qd_art = qd_art + articulated_qdd(scene, st2, tau) * dt
+
     lam = scene.dissipation_lambda[:, None]
-    return st2.replace(vel=vel * lam, omega=omega * lam)
+    return st2.replace(vel=vel * lam, omega=omega * lam, qd_art=qd_art)
 
 
 def contact_dv_replay(scene: sc.Scene, st2: sc.State, z,
                       options: MPCOptions = DEFAULT_OPTIONS):
     """gc-velocity delta of the contact half of `dstep` at a pose-integrated
-    pre-contact state `st2`, replaying the recorded solution z."""
+    pre-contact state `st2`, replaying the recorded solution z through the
+    forward-mode replay: the block-sparse linearizer differentiates it by
+    forward passes."""
     pt = kinematics.compute(scene, st2)
     _, con = nph.narrow_phase(scene, pt.pos, pt.quat, scene.contact_dist_thresh)
     res = impact.resolve_impacts(
         scene, st2, pt, con,
         torch.zeros_like(st2.zlast), torch.zeros_like(st2.zlast_active),
-        lcp_solver=_replay_lcp(z, options),
+        lcp_solver=_replay_lcp(z, options, fwd=True),
     )
     return res.dv
 
 
 def dstep(scene: sc.Scene, st: sc.State, dt, u=None, lcp_given=None,
-          return_z=False, options: MPCOptions = DEFAULT_OPTIONS):
+          return_z=False, lcp_fwd=False, options: MPCOptions = DEFAULT_OPTIONS):
     """One differentiable step of every scenario. u: optional (B, ngc)
     generalized force. lcp_given: optional recorded LCP solution (see
     `_replay_lcp`); callers must ensure `replay_ok(scene)`. return_z: also
     return the LCP solution actually applied this step (zero when gated) for
-    record/replay."""
+    record/replay. lcp_fwd: replay through the forward-mode twin, for
+    forward-mode linearization."""
     st2 = dstep_pre(scene, st, dt, u)
 
     z_step = torch.zeros_like(st.zlast)
@@ -139,7 +150,7 @@ def dstep(scene: sc.Scene, st: sc.State, dt, u=None, lcp_given=None,
         res = impact.resolve_impacts(
             scene, st2, pt, con, st.zlast, st.zlast_active,
             lcp_solver=(_diff_lcp(options) if lcp_given is None
-                        else _replay_lcp(lcp_given, options)),
+                        else _replay_lcp(lcp_given, options, lcp_fwd)),
         )
         st2 = kinematics.apply_gc_velocity_delta(scene, st2, res.dv)
         st2 = st2.replace(zlast=res.zlast, zlast_active=res.zlast_active)

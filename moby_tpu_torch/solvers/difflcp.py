@@ -26,6 +26,10 @@ z0 (B, n), skip (B,). Three forward variants share the same VJP, each a
   then a short ladder), then `lcp_fast_regularized`, then a NaN poison.
 * :func:`solve_lcp_given` — replays a recorded solution.
 
+:func:`solve_lcp_given_fwd` replays a recorded solution too, with the same
+IFT derivative written as a forward-mode rule (`jvp`) for the forward-mode
+linearization of the MPC step.
+
 The inverse of the active block is computed once in the forward, and only
 when M or q requires a gradient; every backward is then a matvec.
 
@@ -71,6 +75,11 @@ class MPCOptions:
         iLQR line search.
     cascade: None routes by device ("accel" on CUDA, "plain" on the CPU);
         "accel" or "plain" forces the route.
+    block_jac: the forward-mode linearization (`solve_batch(linearize_fwd=
+        True)`) uses the block-sparse linearizer `contact_mpc`'s `f_jac`
+        instead of forward mode through the whole replay step.
+    riccati_bf16: the quadratic form FᵀVF of the Riccati recursion takes F
+        and Vxx rounded to bfloat16 and accumulates in the working dtype.
     """
 
     ift_compact_na: int = 32
@@ -82,6 +91,8 @@ class MPCOptions:
     rescue: bool = True
     line_search_steps: int = 8
     cascade: Optional[str] = None
+    block_jac: bool = True
+    riccati_bf16: bool = False
 
 
 DEFAULT_OPTIONS = MPCOptions()
@@ -269,6 +280,50 @@ def solve_lcp_given(M, q, mask, z, options: MPCOptions = DEFAULT_OPTIONS):
     is dropped), exactly as the live solvers expose gradients only through
     (M, q)."""
     return _SolveLCPGiven.apply(M, q, mask, z, options)
+
+
+class _SolveLCPGivenFwd(torch.autograd.Function):
+    @staticmethod
+    def forward(M, q, mask, z, options):
+        return z.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        M, _, mask, z, options = inputs
+        ctx.save_for_forward(M, mask, z)
+        ctx.options = options
+
+    @staticmethod
+    def jvp(ctx, dM, dq, _dmask, _dz, _doptions):
+        M, mask, z = ctx.saved_tensors
+        with torch.no_grad():
+            active, Ainv = _prep_bwd(M, z, mask, transpose=False,
+                                     options=ctx.options)
+        rhs = torch.zeros_like(z)
+        if dM is not None:
+            rhs = rhs + (dM @ z[..., None])[..., 0]
+        if dq is not None:
+            rhs = rhs + dq
+        rhs = torch.where(active, rhs, 0.0)
+        if isinstance(Ainv, tuple):
+            inv_c, P = Ainv
+            dz = -(P.transpose(-1, -2) @ (inv_c @ (P @ rhs[..., None])))[..., 0]
+        else:
+            dz = -(Ainv @ rhs[..., None])[..., 0]
+        return torch.where(active, dz, 0.0)
+
+
+def solve_lcp_given_fwd(M, q, mask, z, options: MPCOptions = DEFAULT_OPTIONS):
+    """Forward-mode twin of :func:`solve_lcp_given`: the same primal (the
+    recorded z) and the same IFT derivative as a JVP. On the active set A,
+
+        dz_A = -M_AA^{-1} (dM_A z + dq_A),   dz = 0 off A,
+
+    from the inverse of `_prep_bwd(M, z, mask, transpose=False)` (its
+    compacted form included). Tangents of M and q come from
+    `torch.autograd.forward_ad` dual tensors; z is data (its tangent is
+    ignored), as the VJP drops z's cotangent."""
+    return _SolveLCPGivenFwd.apply(M, q, mask, z, options)
 
 
 def _use_kernel(M, options: MPCOptions) -> bool:

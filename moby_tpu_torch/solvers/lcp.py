@@ -133,9 +133,15 @@ def _gj_invert(A, signed: bool):
     A = A.clone()
     E = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
     minpiv = torch.full(A.shape[:-2], torch.inf, dtype=A.dtype, device=A.device)
+    # under reverse-mode differentiation (the articulated inverse inertia of
+    # the MPC step) the pivot rows are copied: the in-place updates below
+    # would overwrite views that the products save for the backward pass
+    copy_rows = A.requires_grad and torch.is_grad_enabled()
     for k in range(n):
         prow = A[..., k, :]
         erow = E[..., k, :]
+        if copy_rows:
+            prow, erow = prow.clone(), erow.clone()
         piv = prow[..., k]
         minpiv = torch.minimum(minpiv, piv if signed else piv.abs())
         good = piv.abs() > tiny

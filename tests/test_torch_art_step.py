@@ -31,6 +31,7 @@ from moby_tpu_torch.sim import kinematics as tkin
 from moby_tpu_torch.sim import noslip as tns
 from moby_tpu_torch.sim import stepper as tstep
 from moby_tpu_torch.solvers import hopper_lcp, lcp
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
     batch_jax_art_state, batch_torch_art_state, build_limited_pendulum,
     build_noslip_ball, build_pendulum_ball, build_swing, load_table_both, t2n,

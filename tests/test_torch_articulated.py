@@ -19,6 +19,7 @@ from moby_tpu.math import spatial as jsp
 from moby_tpu_torch.dynamics import aba as taba
 from moby_tpu_torch.dynamics import model as tmdl
 from moby_tpu_torch.math import spatial as tsp
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import t2n
 
 TOL = 1e-10

@@ -19,6 +19,7 @@ from moby_tpu_torch.mpc import contact_mpc as tmpc
 from moby_tpu_torch.mpc import diffstep as tdstep
 from moby_tpu_torch.mpc import ilqr as tilqr
 from moby_tpu_torch.mpc import MPCOptions
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import ballpush_both, t2n
 
 DT = 0.02
@@ -151,7 +152,23 @@ def test_resting_ball_gradient_is_finite():
 
 
 def test_articulated_branch_raises():
-    jscene, jstate, tscene, tstate, x, u = _states(B=2)
-    art = tscene.replace(nv_art=1)
-    with pytest.raises(NotImplementedError, match="articulated"):
-        tdstep.dstep_pre(art, tstate, DT)
+    """The articulated branch of the step used to raise NotImplementedError;
+    it is ported now (tests/test_torch_art_mpc.py holds it against the JAX
+    package). It runs Featherstone's ABA with the joint forces u[:, 6·nb:],
+    and a control vector without those columns raises."""
+    from moby_tpu_torch.core import scene as tsc
+    from moby_tpu_torch.sim import stepper as tstepper
+    from test_torch_helpers import build_limited_pendulum
+
+    scene, st = build_limited_pendulum(tsc).compile(device="cpu")
+    st = st.expand(2)
+    tau = torch.tensor([[0.0], [2.0]], dtype=torch.float64)
+    pre = tdstep.dstep_pre(scene, st, DT, tau)
+    q = tstepper.integrate_art_q(scene, st.q_art, st.qd_art, DT)
+    qdd = tstepper.articulated_qdd(scene, st.replace(q_art=q), tau)
+    np.testing.assert_allclose(t2n(pre.q_art), t2n(q), rtol=0, atol=0)
+    np.testing.assert_allclose(t2n(pre.qd_art), t2n(st.qd_art + qdd * DT), rtol=0,
+                               atol=1e-15)
+    assert float(pre.qd_art[1, 0] - pre.qd_art[0, 0]) > 0     # the torque acts
+    with pytest.raises(RuntimeError):
+        tdstep.dstep_pre(scene, st, DT, tau[:, :0])

@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from moby_tpu.core import scene as jsc
@@ -21,6 +22,19 @@ from moby_tpu_torch.core import scene as tsc
 from moby_tpu_torch.dynamics import model as tmdl
 
 PLANE_RPY = [1.5707963267949, 0, 0]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Every port test file imports this: its tensors are small, so PyTorch's
+    intra-op threads only add synchronisation, and with six test workers on
+    the machine they take cores from the others (the three MPC test files ran
+    1.6 times as fast on one thread, with a third of the CPU time). The
+    previous count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 TABLE_XML = "scenes/fixed-articulated-table.xml"
 SITTING_BOX_XML = "scenes/sitting-box.xml"
 
@@ -61,6 +75,50 @@ def build_ballpush(sc):
     b.set_contact_params(
         "ground", "ball", sc.ContactParams(epsilon=0.0, mu_coulomb=0.5, nk=4))
     return b
+
+
+def build_blockpush(sc):
+    """The block-push scene of `examples/block_push_mpc.py`: a 0.2 m cube of
+    1 kg resting on the plane, mu=0.3, nk=4 (K=8 vertex slots, the QP-KKT
+    LCP has n=64)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("block", mass=1.0, inertia=sc.box_inertia(1.0, 0.2, 0.2, 0.2),
+               pos=np.array([0.0, 0.0, 0.2]))
+    b.add_geom("block", sc.BOX, [0.2, 0.2, 0.2])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params("ground", "block", sc.ContactParams(mu_coulomb=0.3, nk=4))
+    return b
+
+
+def blockpush_costs(target=(0.6, 0.3)):
+    """(jax cost, jax cost_final, torch cost, torch cost_final) of
+    `examples/block_push_mpc.py`; the JAX pair takes one scenario, the
+    port's a batch."""
+    tj = jnp.asarray(target)
+
+    def jcost(x, u):
+        return 1e-4 * jnp.sum(u[:6] ** 2)
+
+    def jfinal(x):
+        return 100.0 * jnp.sum((x[0:2] - tj) ** 2)
+
+    def tcost(x, u):
+        return 1e-4 * (u[:, :6] ** 2).sum(dim=1)
+
+    def tfinal(x):
+        tt = torch.as_tensor(target, dtype=x.dtype, device=x.device)
+        return 100.0 * ((x[:, 0:2] - tt) ** 2).sum(dim=1)
+
+    return jcost, jfinal, tcost, tfinal
+
+
+def blockpush_both(dtype=torch.float64):
+    """The block-push scene compiled by the JAX package and carried into the
+    port: (jscene, jstate, tscene, tstate)."""
+    jscene, jstate = build_blockpush(jsc).compile()
+    return (jscene, jstate) + torch_scene_state(jscene, jstate, dtype)
 
 
 def build_box_on_plane(sc):
@@ -141,6 +199,34 @@ def build_limited_pendulum(sc, restitution=0.0):
     b.add_articulated("pend", pendulum_model(_mdl(sc), lo=0.5, hi=3.0,
                                              restitution=restitution),
                       q0=np.array([1.0]))
+    return b
+
+
+def build_limited_double_pendulum(sc, q0=(0.5, 0.3), qd0=(-0.5, 0.2)):
+    """The double pendulum of `examples/double_pendulum.py` (two 1 m rods of
+    1 kg on revolute joints about z, gravity along -y) with the first joint
+    limited to [0.5, 3.0] as in the repo's limited-pendulum tests, started on
+    its lower limit and moving into it, so the limit row is active."""
+    mdl = _mdl(sc)
+
+    def link(name, parent_r, lo=None, hi=None):
+        j = mdl.JointDef(
+            jtype=mdl.REVOLUTE, Xt_E=np.eye(3), Xt_r=parent_r,
+            axis=np.array([0.0, 0, 1]),
+            lo=None if lo is None else np.array([lo]),
+            hi=None if hi is None else np.array([hi]),
+        )
+        return mdl.LinkDef(name=name, mass=1.0, com=np.array([0.0, -0.5, 0.0]),
+                           inertia_com=np.diag([1.0 / 12, 1e-12, 1.0 / 12]),
+                           joint=j)
+
+    m = mdl.ArticulatedModel(
+        [link("l1", np.zeros(3), lo=0.5, hi=3.0),
+         link("l2", np.array([0.0, -1.0, 0.0]))], floating=False)
+    m.set_parents([-1, 0])
+    b = sc.SceneBuilder()
+    b.set_gravity([0, -9.81, 0])
+    b.add_articulated("dp", m, q0=np.array(q0), qd0=np.array(qd0))
     return b
 
 

@@ -19,6 +19,7 @@ from moby_tpu_torch.geometry import narrowphase as tnph
 from moby_tpu_torch.sim import impact as timp
 from moby_tpu_torch.sim import kinematics as tkin
 from moby_tpu_torch.sim import stabilization as tstab
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
     build_ballpush, build_box_on_plane, build_stack, jax_fields, t2n,
     torch_scene_state,

@@ -17,6 +17,7 @@ import torch
 
 from moby_tpu.solvers import lcp as jlcp
 from moby_tpu_torch.solvers import lcp as tlcp
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import make_kkt, make_monotone, t2n
 
 B = 6

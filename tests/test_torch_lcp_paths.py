@@ -22,6 +22,7 @@ import torch
 
 from moby_tpu.solvers import pallas_lcp
 from moby_tpu_torch.solvers import hopper_lcp
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import make_monotone, t2n
 
 

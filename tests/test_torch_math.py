@@ -16,6 +16,7 @@ from moby_tpu_torch.math import linalg as tlin
 from moby_tpu_torch.math import quaternion as tq
 from moby_tpu_torch.math import so3 as tso3
 from moby_tpu_torch.math import spatial as tsp
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import make_monotone, t2n
 
 ATOL = 1e-12

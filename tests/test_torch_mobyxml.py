@@ -21,6 +21,7 @@ from moby_tpu.core import scene as jsc
 from moby_tpu.io import mobyxml as jxml
 from moby_tpu_torch.core import scene as tsc
 from moby_tpu_torch.io import mobyxml as txml
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
     SITTING_BOX_XML, TABLE_XML, assert_same_compiled, build_limited_pendulum,
     build_pendulum_ball, torch_scene_state,

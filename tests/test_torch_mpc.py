@@ -24,6 +24,7 @@ from moby_tpu_torch.mpc import contact_mpc as tmpc
 from moby_tpu_torch.mpc import ilqr as tilqr
 from moby_tpu_torch.mpc import MPCOptions
 from moby_tpu_torch.solvers import hopper_lcp
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import ballpush_both, ballpush_costs, ilqr_arrays
 
 B, H, N_ITERS, DT = 4, 12, 3, 0.02

@@ -22,6 +22,7 @@ from moby_tpu_torch.solvers import difflcp as tdiff
 from moby_tpu_torch.solvers import hopper_lcp
 from moby_tpu_torch.solvers import lcp as tlcp
 from moby_tpu_torch.solvers.difflcp import MPCOptions
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import make_kkt, make_monotone, t2n
 
 

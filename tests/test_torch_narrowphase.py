@@ -16,6 +16,7 @@ from moby_tpu.sim import stepper as jstep
 from moby_tpu_torch.geometry import narrowphase as tnph
 from moby_tpu_torch.sim import kinematics as tkin
 from moby_tpu_torch.sim import stepper as tstep
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
     build_box_on_box, build_box_on_plane, build_stack, jax_fields, t2n,
     torch_scene_state,

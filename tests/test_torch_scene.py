@@ -15,6 +15,7 @@ import torch
 from moby_tpu.core import scene as jsc
 from moby_tpu_torch.core import scene as tsc
 from moby_tpu_torch.dynamics import model as tmdl
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
     assert_same_fields, build_ballpush, build_box_on_box, build_box_on_plane,
     build_stack, jax_fields, pendulum_model, torch_scene_state,

@@ -21,6 +21,7 @@ from moby_tpu.core import scene as jsc
 from moby_tpu.sim import stepper as jstep
 from moby_tpu_torch.core import scene as tsc
 from moby_tpu_torch.sim import stepper as tstep
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
     batch_jax_state, batch_torch_state, build_ballpush, build_box_on_box,
     build_box_on_plane, build_stack, t2n, torch_scene_state,
