@@ -169,8 +169,7 @@ def make_dynamics_rr(scene: sc.Scene, template: sc.State, dt,
     backward replay stays exact regardless of seeding.
     f_replay(x, u, z) -> x': the identical step with the pivoting solve
     replaced by `solve_lcp_given(z)` — same primal, same IFT gradients,
-    zero pivot iterations. f_replay.fwd: the same through
-    `solve_lcp_given_fwd`, differentiable in forward mode. f_replay.jac
+    zero pivot iterations, differentiable in both modes. f_replay.jac
     (with options.block_jac): the block-sparse linearizer
     (`_block_linearizer`).
 
@@ -203,14 +202,7 @@ def make_dynamics_rr(scene: sc.Scene, template: sc.State, dt,
                              options=options)
         return pack(scene, st2)
 
-    def f_replay_fwd(x, u, z):
-        st = unpack(scene, cold, x)
-        st2 = diffstep.dstep(scene, st, dt, expand(u), lcp_given=z,
-                             lcp_fwd=True, options=options)
-        return pack(scene, st2)
-
     f_record.aux_init = aux_init
-    f_replay.fwd = f_replay_fwd
     if options.block_jac:
         f_replay.jac = _block_linearizer(scene, cold, dt, expand, options)
     return f, f_record, f_replay
@@ -345,22 +337,10 @@ def _block_linearizer(scene: sc.Scene, cold: sc.State, dt, expand,
     return f_jac
 
 
-def hoist_chunks(scene: sc.Scene, B: int, H: int, dtype,
-                 linearize_fwd: bool = False,
-                 options: MPCOptions = DEFAULT_OPTIONS) -> int:
-    """The fewest chunks of whole time steps whose hoisted linearization
-    stays under HOIST_BUDGET_BYTES, from the sizes alone.
-
-    Memory model of one replica of the step (one member, one tangent or
-    cotangent direction): REPLICA_MATRICES matrices of the LCP's n × n
-    (the Delassus and KKT matrices, the padded copies and the IFT inverse
-    that the linearization keeps) plus REPLICA_SCALARS numbers of the rest.
-    Reverse mode keeps nx replicas of the graph a member; forward mode
-    (nx + nu replicas, or the block linearizer's largest pass) keeps no
-    graph, but the same model bounds its transient tensors. On an H100,
-    block-push's hoisted linearization in float32 (n=64) took 43 KB a
-    replica above the unhoisted solve's peak (2.6 matrices); the model
-    allows 2.2 times that."""
+def hoist_step_bytes(scene: sc.Scene, B: int, dtype, linearize_fwd: bool = False,
+                     options: MPCOptions = DEFAULT_OPTIONS):
+    """(replicas, bytes) of one time step of the hoisted linearization at
+    batch B, by the memory model of `hoist_chunks`."""
     nx = sum(state_sizes(scene))
     nu = n_controls(scene)
     if linearize_fwd and options.block_jac:
@@ -373,7 +353,27 @@ def hoist_chunks(scene: sc.Scene, B: int, H: int, dtype,
     n = scene.n_lcp
     itemsize = torch.finfo(dtype).bits // 8
     replica = itemsize * (REPLICA_MATRICES * n * n + REPLICA_SCALARS)
-    per_step = B * reps * replica
+    return B * reps, B * reps * replica
+
+
+def hoist_chunks(scene: sc.Scene, B: int, H: int, dtype,
+                 linearize_fwd: bool = False,
+                 options: MPCOptions = DEFAULT_OPTIONS) -> int:
+    """The fewest chunks of whole time steps whose hoisted linearization
+    stays under HOIST_BUDGET_BYTES, from the sizes alone.
+
+    Memory model of one replica of the step (one member, one tangent or
+    cotangent direction): REPLICA_MATRICES matrices of the LCP's n × n
+    (the Delassus and KKT matrices, the padded copies and the IFT inverse
+    that the linearization keeps) plus REPLICA_SCALARS numbers of the rest.
+    Reverse mode keeps nx replicas of the graph a member; forward mode
+    (nx + nu replicas, or the block linearizer's largest pass) keeps no
+    graph, but the same model bounds its transient tensors. On an H100 in
+    float32, the hoisted linearization took above the unhoisted solve's
+    peak 61.6 KB a replica on block-push (n=64; 48.8 KB in forward mode)
+    and 4.0 KB on ball-push (n=8): the model allows 1.6 and 4.4 times
+    that."""
+    _, per_step = hoist_step_bytes(scene, B, dtype, linearize_fwd, options)
     steps = max(1, min(H, HOIST_BUDGET_BYTES // max(1, per_step)))
     return -(-H // steps)
 

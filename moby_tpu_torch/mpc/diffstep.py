@@ -12,8 +12,8 @@ joint forces of the articulated bodies.
 Every array carries the batch of scenarios as its leading dimension. The
 step is differentiable by `torch.autograd`: the live solve and the replayed
 solves are `torch.autograd.Function`s, everything else is plain tensor code.
-The replay through `solve_lcp_given_fwd` (`lcp_fwd=True`) is differentiable
-in forward mode as well (`torch.autograd.forward_ad`).
+The replay through `solve_lcp_given` is differentiable in forward mode as
+well (`torch.autograd.forward_ad`).
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ from ..solvers.difflcp import (
     MPCOptions,
     solve_lcp_diff_mpc,
     solve_lcp_given,
-    solve_lcp_given_fwd,
 )
 
 
@@ -48,15 +47,14 @@ def _diff_lcp(options: MPCOptions = DEFAULT_OPTIONS):
     return solver
 
 
-def _replay_lcp(z_rec, options: MPCOptions = DEFAULT_OPTIONS, fwd=False):
-    """LCP 'solver' that replays a recorded solution (same IFT gradients,
-    zero pivot iterations). Only valid for single-solve scenes (all
-    restitution zero — the gated second solve would need its own record).
-    fwd=True uses the forward-mode twin for forward-mode linearization."""
-    given = solve_lcp_given_fwd if fwd else solve_lcp_given
+def _replay_lcp(z_rec, options: MPCOptions = DEFAULT_OPTIONS):
+    """LCP 'solver' that replays a recorded solution (same IFT gradients in
+    both modes, zero pivot iterations). Only valid for single-solve scenes
+    (all restitution zero — the gated second solve would need its own
+    record)."""
 
     def solver(M, q, mask, z0, skip=None):
-        return given(M, q, mask, z_rec, options), _all_ok(q)
+        return solve_lcp_given(M, q, mask, z_rec, options), _all_ok(q)
 
     return solver
 
@@ -119,27 +117,25 @@ def dstep_pre(scene: sc.Scene, st: sc.State, dt, u=None) -> sc.State:
 def contact_dv_replay(scene: sc.Scene, st2: sc.State, z,
                       options: MPCOptions = DEFAULT_OPTIONS):
     """gc-velocity delta of the contact half of `dstep` at a pose-integrated
-    pre-contact state `st2`, replaying the recorded solution z through the
-    forward-mode replay: the block-sparse linearizer differentiates it by
-    forward passes."""
+    pre-contact state `st2`, replaying the recorded solution z: the
+    block-sparse linearizer differentiates it by forward passes."""
     pt = kinematics.compute(scene, st2)
     _, con = nph.narrow_phase(scene, pt.pos, pt.quat, scene.contact_dist_thresh)
     res = impact.resolve_impacts(
         scene, st2, pt, con,
         torch.zeros_like(st2.zlast), torch.zeros_like(st2.zlast_active),
-        lcp_solver=_replay_lcp(z, options, fwd=True),
+        lcp_solver=_replay_lcp(z, options),
     )
     return res.dv
 
 
 def dstep(scene: sc.Scene, st: sc.State, dt, u=None, lcp_given=None,
-          return_z=False, lcp_fwd=False, options: MPCOptions = DEFAULT_OPTIONS):
+          return_z=False, options: MPCOptions = DEFAULT_OPTIONS):
     """One differentiable step of every scenario. u: optional (B, ngc)
     generalized force. lcp_given: optional recorded LCP solution (see
     `_replay_lcp`); callers must ensure `replay_ok(scene)`. return_z: also
     return the LCP solution actually applied this step (zero when gated) for
-    record/replay. lcp_fwd: replay through the forward-mode twin, for
-    forward-mode linearization."""
+    record/replay."""
     st2 = dstep_pre(scene, st, dt, u)
 
     z_step = torch.zeros_like(st.zlast)
@@ -150,7 +146,7 @@ def dstep(scene: sc.Scene, st: sc.State, dt, u=None, lcp_given=None,
         res = impact.resolve_impacts(
             scene, st2, pt, con, st.zlast, st.zlast_active,
             lcp_solver=(_diff_lcp(options) if lcp_given is None
-                        else _replay_lcp(lcp_given, options, lcp_fwd)),
+                        else _replay_lcp(lcp_given, options)),
         )
         st2 = kinematics.apply_gc_velocity_delta(scene, st2, res.dv)
         st2 = st2.replace(zlast=res.zlast, zlast_active=res.zlast_active)

@@ -371,10 +371,10 @@ def ilqr_batched(
     some H/hoist_chunks times fewer, larger launches. Values do not depend
     on the chunking.
 
-    linearize_fwd (needs record/replay with f_replay.fwd, the replay through
-    `solve_lcp_given_fwd`): step Jacobians by forward mode (`jacfwd`, no
-    backward pass), or by f_replay.jac (`contact_mpc`'s block-sparse
-    linearizer) when it is set.
+    linearize_fwd (needs record/replay, whose replay step f_replay is
+    differentiable in forward mode): step Jacobians by forward mode
+    (`jacfwd` through f_replay, no backward pass), or by f_replay.jac
+    (`contact_mpc`'s block-sparse linearizer) when it is set.
 
     riccati_bf16: see `_riccati_step`.
     """
@@ -385,16 +385,16 @@ def ilqr_batched(
     H, nu = us0.shape[1:]
     dtype, device = x0s.dtype, x0s.device
     rr = f_record is not None and f_replay is not None
-    if linearize_fwd and not (rr and getattr(f_replay, "fwd", None)):
+    if linearize_fwd and not rr:
         raise ValueError(
-            "linearize_fwd needs record/replay with a forward-mode replay step "
-            "(f_replay.fwd); the live pivoting solve has no forward-mode rule")
+            "linearize_fwd needs record/replay; the live pivoting solve has no "
+            "forward-mode rule")
 
     if rr and linearize_fwd and getattr(f_replay, "jac", None) is not None:
         linearize = f_replay.jac
     elif rr and linearize_fwd:
         def linearize(x, u, z):
-            return _jacobians_fwd(f_replay.fwd, x, u, z)
+            return _jacobians_fwd(f_replay, x, u, z)
     elif rr:
         def linearize(x, u, z):
             return _jacobians(f_replay, x, u, z)

@@ -26,9 +26,9 @@ z0 (B, n), skip (B,). Three forward variants share the same VJP, each a
   then a short ladder), then `lcp_fast_regularized`, then a NaN poison.
 * :func:`solve_lcp_given` — replays a recorded solution.
 
-:func:`solve_lcp_given_fwd` replays a recorded solution too, with the same
-IFT derivative written as a forward-mode rule (`jvp`) for the forward-mode
-linearization of the MPC step.
+:func:`solve_lcp_given` also carries the IFT derivative as a forward-mode
+rule (`jvp`), for the forward-mode linearization of the MPC step
+(`solve_lcp_given_fwd` is another name for it).
 
 The inverse of the active block is computed once in the forward, and only
 when M or q requires a gradient; every backward is then a matvec.
@@ -262,36 +262,13 @@ class _SolveLCPGiven(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         M, _, mask, z, options = inputs
         _save_ift(ctx, M, z, mask, options)
+        ctx.save_for_forward(M, mask, z)
+        ctx.options = options
 
     @staticmethod
     def backward(ctx, zbar):
         Mbar, qbar = _pull_back(ctx, zbar)
         return Mbar, qbar, None, None, None
-
-
-def solve_lcp_given(M, q, mask, z, options: MPCOptions = DEFAULT_OPTIONS):
-    """Replay a known LCP solution with the same IFT gradients as the live
-    solves above.
-
-    The iLQR backward pass linearizes the dynamics at states the accepted
-    rollout ALREADY stepped through: the rollout's pivoting solve produced z
-    there. The primal here just returns the recorded z; the VJP is the
-    identical `_ift_bwd` pullback evaluated at it. z is data (its cotangent
-    is dropped), exactly as the live solvers expose gradients only through
-    (M, q)."""
-    return _SolveLCPGiven.apply(M, q, mask, z, options)
-
-
-class _SolveLCPGivenFwd(torch.autograd.Function):
-    @staticmethod
-    def forward(M, q, mask, z, options):
-        return z.clone()
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        M, _, mask, z, options = inputs
-        ctx.save_for_forward(M, mask, z)
-        ctx.options = options
 
     @staticmethod
     def jvp(ctx, dM, dq, _dmask, _dz, _doptions):
@@ -313,17 +290,31 @@ class _SolveLCPGivenFwd(torch.autograd.Function):
         return torch.where(active, dz, 0.0)
 
 
-def solve_lcp_given_fwd(M, q, mask, z, options: MPCOptions = DEFAULT_OPTIONS):
-    """Forward-mode twin of :func:`solve_lcp_given`: the same primal (the
-    recorded z) and the same IFT derivative as a JVP. On the active set A,
+def solve_lcp_given(M, q, mask, z, options: MPCOptions = DEFAULT_OPTIONS):
+    """Replay a known LCP solution with the same IFT gradients as the live
+    solves above.
+
+    The iLQR backward pass linearizes the dynamics at states the accepted
+    rollout ALREADY stepped through: the rollout's pivoting solve produced z
+    there. The primal here just returns the recorded z; the VJP is the
+    identical `_ift_bwd` pullback evaluated at it. z is data (its cotangent
+    is dropped), exactly as the live solvers expose gradients only through
+    (M, q).
+
+    The same derivative is also a forward-mode rule (`jvp`), for the
+    forward-mode linearization: tangents of M and q come from
+    `torch.autograd.forward_ad` dual tensors and, on the active set A,
 
         dz_A = -M_AA^{-1} (dM_A z + dq_A),   dz = 0 off A,
 
     from the inverse of `_prep_bwd(M, z, mask, transpose=False)` (its
-    compacted form included). Tangents of M and q come from
-    `torch.autograd.forward_ad` dual tensors; z is data (its tangent is
-    ignored), as the VJP drops z's cotangent."""
-    return _SolveLCPGivenFwd.apply(M, q, mask, z, options)
+    compacted form included); z's tangent is ignored."""
+    return _SolveLCPGiven.apply(M, q, mask, z, options)
+
+
+# the JAX package's name for the forward-mode replay (a custom_jvp there,
+# where custom_vjp and custom_jvp cannot share one function)
+solve_lcp_given_fwd = solve_lcp_given
 
 
 def _use_kernel(M, options: MPCOptions) -> bool:

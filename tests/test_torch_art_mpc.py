@@ -117,7 +117,7 @@ def test_jacobians_match_jax_jacrev(pendulum, jax_reference):
     _, z, _ = f_rec(xt, ut, f_rec.aux_init(B))
     _close(tilqr._jacobians(f, xt, ut), jax_jacobians, "reverse mode, live step")
     _close(tilqr._jacobians(f_rep, xt, ut, z), jax_jacobians, "reverse mode, replay")
-    _close(tilqr._jacobians_fwd(f_rep.fwd, xt, ut, z), jax_jacobians, "forward mode")
+    _close(tilqr._jacobians_fwd(f_rep, xt, ut, z), jax_jacobians, "forward mode")
     # the block linearizer's non-analytic u columns (forward mode over u)
     _close(f_rep.jac(xt, ut, z), jax_jacobians, "block linearizer")
     # the stop shapes A: held against it, the first joint's new velocity

@@ -1,6 +1,6 @@
 """PyTorch port: the MPC linearization options — `difflcp.solve_lcp_given_fwd`
-(the forward-mode replay), forward-mode step Jacobians (`ilqr.jacfwd` through
-`f_replay.fwd`, and the block-sparse linearizer `f_replay.jac`), the hoisted
+(the replay's forward-mode rule), forward-mode step Jacobians (`ilqr.jacfwd`
+through `f_replay`, and the block-sparse linearizer `f_replay.jac`), the hoisted
 linearization and the bfloat16 Riccati form of `ilqr.ilqr_batched` —
 against the JAX package and against the port's reverse mode, float64 on the
 CPU.
@@ -208,7 +208,7 @@ def test_forward_mode_jacobians_match_jax_and_reverse_mode(name, jac_cases):
     np.testing.assert_allclose(t2n(zt), z, rtol=0, atol=1e-10)
     assert bool((zt.abs() > 1e-10).any(dim=1).all())      # every case in contact
     rev = tilqr._jacobians(f_rep, xt, ut, zt)
-    fwd = tilqr._jacobians_fwd(f_rep.fwd, xt, ut, zt)
+    fwd = tilqr._jacobians_fwd(f_rep, xt, ut, zt)
     blk = f_rep.jac(xt, ut, zt)
     for got, what in ((blk, "block linearizer"), (fwd, "forward mode"),
                       (rev, "reverse mode")):
@@ -223,7 +223,7 @@ def test_block_linearizer_is_optional():
     jscene, jstate, tscene, tstate = blockpush_both()
     _, _, f_rep = tmpc.make_dynamics_rr(tscene, tstate, DT,
                                         MPCOptions(block_jac=False))
-    assert getattr(f_rep, "jac", None) is None and callable(f_rep.fwd)
+    assert getattr(f_rep, "jac", None) is None
     _, _, f_rep = tmpc.make_dynamics_rr(tscene, tstate, DT)
     assert callable(f_rep.jac)
 

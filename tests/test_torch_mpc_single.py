@@ -171,6 +171,55 @@ def test_blockpush_kernel_route_with_the_plain_mirrors(blockpush):
         assert hopper_lcp.launch_plan(64, torch.float32, B).path == "block"
 
 
+def test_blockpush_float64_done_is_decided_by_rounding(blockpush):
+    """Why the card's float64 `bpp_lcp` and `bpp_lcp_plain` cannot be held to
+    the same `done` on block-push's LCPs: the four coplanar bottom contacts
+    make the block-pivoting system M_FF singular, and its elimination meets
+    a pivot that is exactly 0 in one rounding (the step is skipped) and
+    about 1e-17·‖M‖∞ in another (the step divides by it). Perturbing M by
+    1e-15 relative, the size of the difference between the kernel's fused,
+    unscaled elimination and the plain version's, changes whether many
+    problems finish; every problem that finishes is a verified solution."""
+    tprob, tstate, _, _, _ = blockpush
+    scene = tprob.scene
+    B = 32
+    rng = np.random.default_rng(7)
+    st = tstate.expand(B)
+    pos = st.pos.clone()
+    pos[:, 0, :2] += torch.tensor(rng.uniform(-0.05, 0.05, size=(B, 2)))
+    st = st.replace(pos=pos)
+    u = torch.zeros(B, 6, dtype=torch.float64)
+    u[:, :2] = torch.tensor(rng.uniform(-2.0, 2.0, size=(B, 2)))
+    u[:, 3:] = torch.tensor(rng.uniform(-0.2, 0.2, size=(B, 3)))
+    calls = []
+    real = hopper_lcp.bpp_lcp
+
+    def spy(M, q, mask, z0=None, max_bpp=24, **k):
+        calls.append((M, q, mask, z0, max_bpp))
+        return real(M, q, mask, z0=z0, max_bpp=max_bpp, **k)
+
+    f = tmpc.make_dynamics(scene, tstate, DT, MPCOptions(cascade="accel"))
+    hopper_lcp.bpp_lcp = spy
+    try:
+        with torch.no_grad():
+            f(tmpc.pack(scene, st), u)
+    finally:
+        hopper_lcp.bpp_lcp = real
+    M, q, mask, z0, mb = calls[0]                  # stage 1 of the step's solve
+    assert M.shape == (B, 64, 64) and bool(mask.any(dim=1).all())
+    noise = torch.randn(M.shape, generator=torch.Generator().manual_seed(1),
+                        dtype=M.dtype)
+    Mp, qp = tlcp.pad_lcp(M, q, mask)
+    tol = tlcp._check_tol(Mp, mask)
+    done = []
+    for Mx in (M, M * (1 + 1e-15 * noise)):
+        z, ok = hopper_lcp.bpp_lcp_plain(Mx, q, mask, z0=z0, max_bpp=mb)
+        assert bool((~ok | tlcp._verify(Mp, qp, z, mask, tol)).all())
+        done.append(ok)
+    flips = int((done[0] != done[1]).sum())
+    assert flips >= B // 4, f"only {flips} of {B} problems changed"
+
+
 @pytest.mark.parametrize("B", [1, 8])
 def test_quu_inverse_has_no_shape_special_case(B):
     """The single solve's Quu (batch 1) and the step-size batch of 8 take the
