@@ -55,7 +55,7 @@ It needs no network and no JAX. Phases, each of which fails the run:
              `bpp_lcp`'s block path), float32: (a) `contact_mpc.solve` at the
              example's own settings (one scenario, H=30, dt=0.02, 12
              iterations, target (0.6, 0.3)); (b) `solve_batch` at B=1024 with
-             x and y jitter in [-0.05, 0.05) m from `--seed`, H=30, 4
+             x and y jitter in [-0.05, 0.05) m from `--seed`, H=30, 2
              iterations, in five modes: rr (the default), rr with the hoisted
              linearization, rr with forward-mode linearization (the block
              linearizer), both, and rr with the bfloat16 Riccati form. For
@@ -95,6 +95,34 @@ It needs no network and no JAX. Phases, each of which fails the run:
              5e-3), and the limited pendulum of the repo's articulated tests
              (stop at 0.5 rad) from q=1 over 800 steps (min q above
              0.5 - 1e-3, max |q| drift below 2e-2).
+13. models  — the other contact models at full width, float32, B=512,
+             dt=1e-3, through `stepper.step`: the stack with the true
+             friction cone (nk=0 on its three contact pairs, whose islands
+             go to the NQP; its other pairs keep nk=4), the mixed
+             islands (the stack with nk=4, a no-slip sphere and a true-cone
+             sphere: three impact models in one step), the compliant stack
+             (penalty contact, kp=5000, kv=100, stabilization off) and a
+             chain of six spheres joined by point constraints to each other
+             and to a disabled anchor, lying 1 mm into the plane (bilateral
+             rows and contact in one impact problem). For each: scenario-steps/s, the device's busy
+             share and launches a step, `ppm_lcp`'s launches (counts set to
+             0 just before, read just after) and calls with work, and the
+             launches of one NQP solve. With the kernels phase, `ppm_lcp` is
+             then held against `ppm_lcp_plain` on the LCPs these runs
+             recorded (the NQP's kappa pre-solves, the QP islands, the
+             no-slip MLCPs, stabilization).
+14. modelsparity — card float32 against the port on the CPU in float64,
+             B=4, 8-50 steps (MODELS_PARITY_STEPS), for those four
+             configurations and a gear-coupled double pendulum and a
+             planar-jointed box built in code: the
+             largest position drift within MODELS_DRIFT_LIMIT, the bilateral
+             violation |C| on the card below 1e-3; then a compliant ball
+             settles within 10% of its spring compression mg/kp.
+15. regress — the port's regress CLI (`moby_tpu_torch.cli.regress`) on
+             `scenes/sitting-box.xml` and `scenes/fixed-articulated-table.xml`,
+             200 steps of dt=1e-3 (the table 30), on the card and with
+             `--cpu`; the two dumps compared by the port's `compare` within
+             5e-3.
 
 Then each kernel is timed on the inputs the main paths really gave it,
 beside its plain version, its bound and its launch floor (the same call with
@@ -104,8 +132,9 @@ step's recorded stage-1 problems. Output: a `{"kernels": [...]}` JSON line,
 the card's name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device the script exits with a non-zero code and no result.
-`--phases kernels`, `--phases mpc`, `--phases block,blockparity,artmpc` or
-`--phases art` are the short runs (no result line).
+`--phases kernels`, `--phases mpc`, `--phases block,blockparity,artmpc`,
+`--phases art` or `--phases models,modelsparity,regress` are the short runs
+(no result line).
 """
 
 import argparse
@@ -119,7 +148,8 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernels", "step", "parity", "mpc", "mpcparity",
-          "block", "blockparity", "artmpc", "art", "artparity")
+          "block", "blockparity", "artmpc", "art", "artparity", "models",
+          "modelsparity", "regress")
 BATCH = 512          # scenarios of the full-width step
 MPC_BATCH = 1536     # scenarios of the full-width contact-MPC solve
 MPC_HORIZON = 50     # steps of dt = MPC_DT in the MPC's horizon
@@ -156,7 +186,7 @@ BLOCK_DT = 0.02
 BLOCK_TARGET = (0.6, 0.3)
 BLOCK_SINGLE_ITERS = 12
 BLOCK_BATCH = 1024
-BLOCK_ITERS = 4
+BLOCK_ITERS = 2            # of each batch solve: keeps the script in its time
 BLOCK_JITTER = 0.05         # x and y jitter of the batch's blocks, metres
 BLOCK_MODES = (
     ("rr", {}),
@@ -197,6 +227,37 @@ ART_MPC_DT = 0.01
 # 3.4e-4·‖M‖∞ in float32, which moves these Jacobians by 7e-4 of their scale
 # in a float32 run on the CPU)
 ART_MPC_TOL = {"dstep": 1e-4, "jacobian": 5e-3}
+MODELS_BATCH = 512          # scenarios of each full-width run of the other models
+MODELS_DT = 1e-3
+# timed steps of each configuration at MODELS_BATCH, from the jittered
+# initial state (a warm-up step from the same state is not counted). In
+# float32 (NEAR_ZERO = 3.45e-4) stabilization parks a body 2·NEAR_ZERO above
+# its support, velocity untouched, so a resting float32 stack's impacts come
+# in bursts about 35 steps apart; the first step resolves the jitter's
+# initial overlaps
+MODELS_STEPS = {"truecone": 8, "mixed": 8, "compliant": 40, "chain": 20}
+MODELS_PARITY_BATCH = 4
+# steps of each parity run: at B=4 the card is launch-bound, 0.75 s a step
+# for the NQP configurations and 0.2 s for the chain, and the CPU float64
+# reference of the NQP ones takes 0.5 s a step (the mixed scene's true-cone
+# sphere takes ~23 mini-steps a step there from step 55 on)
+MODELS_PARITY_STEPS = {"truecone": 8, "mixed": 8, "compliant": 50,
+                       "chain": 30, "gear": 50, "planar": 30}
+# largest position/joint drift, card float32 against CPU float64: five
+# times what the same code gave in float32 against float64 on the CPU
+# (B=4, seed 1) over 30 steps (truecone, mixed) or 100 (the rest): 1.79e-3,
+# 2.63e-3, 1.39e-6, 1.11e-3, 3.84e-7, 3.01e-4
+MODELS_DRIFT_LIMIT = {"truecone": 9e-3, "mixed": 1.4e-2, "compliant": 7e-6,
+                      "chain": 5.6e-3, "gear": 2e-6, "planar": 1.6e-3}
+BILATERAL_VIO_LIMIT = 1e-3  # max |C| of the bilateral constraints on the card
+COMPLIANT_KP = 5000.0
+COMPLIANT_SETTLE_STEPS = 200
+COMPLIANT_SETTLE_RTOL = 0.1  # of the spring compression mg/kp
+# steps of each regress dump: the table takes 0.35-0.45 s a step on the
+# card at B=1 (its CPU float64 run 0.05 s), so it runs 30
+REGRESS_STEPS = {"sitting-box.xml": 200, "fixed-articulated-table.xml": 30}
+REGRESS_DT = 1e-3
+REGRESS_TOL = 5e-3          # scripts/tpu_smoke.py's table drift at 0.2 s
 SOURCE = "moby_tpu_torch/csrc/ppm_lcp.cu"
 REPLACES = "moby_tpu/solvers/pallas_lcp.py:226"   # ppm_lcp_one's pl.pallas_call
 BPP_SOURCE = "moby_tpu_torch/csrc/bpp_lcp.cu"
@@ -268,34 +329,49 @@ def monotone(B, n, seed, dtype):
             torch.tensor(q, dtype=dtype, device=DEVICE))
 
 
-def build_stack(device, dtype=None):
-    from moby_tpu_torch.core import scene as sc
+def plane_quat():
     from moby_tpu_torch.math import quaternion as quat
+
+    return quat.from_rpy(
+        torch.tensor([1.5707963267949, 0, 0], dtype=torch.float64)).numpy()
+
+
+def make_stack(nk=16, compliant=False):
+    """The 3-sphere friction+restitution stack of the repo's benchmark
+    (mu=0.5, eps=0.3); nk=0 asks for the true friction cone (the NQP);
+    `compliant` makes every sphere a penalty body (kp=5000, kv=100, with
+    stabilization off, as tests/test_compliant.py sets them)."""
+    from moby_tpu_torch.core import scene as sc
 
     b = sc.SceneBuilder()
     b.set_gravity([0, 0, -9.81])
     inertia = sc.sphere_inertia(1.0, 1.0)
-    b.add_body("sph1", mass=1.0, inertia=inertia, pos=np.array([0, 0, 1.0]))
-    b.add_body("sph2", mass=1.0, inertia=inertia, pos=np.array([0, 0, 3.0]))
-    b.add_body("sph3", mass=1.0, inertia=inertia, pos=np.array([0, 0, 5.0]))
+    for i, n in enumerate(("sph1", "sph2", "sph3")):
+        b.add_body(n, mass=1.0, inertia=inertia, pos=np.array([0, 0, 1.0 + 2 * i]),
+                   compliant=compliant)
     b.add_body("ground", enabled=False)
     for n in ("sph1", "sph2", "sph3"):
         b.add_geom(n, sc.SPHERE, [1.0])
-    pq = quat.from_rpy(
-        torch.tensor([1.5707963267949, 0, 0], dtype=torch.float64)).numpy()
-    b.add_geom("ground", sc.PLANE, [0.0], quat=pq)
-    cp = sc.ContactParams(epsilon=0.3, mu_coulomb=0.5, nk=16)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    cp = sc.ContactParams(epsilon=0.3, mu_coulomb=0.5, nk=nk,
+                          penalty_kp=5000.0 if compliant else 0.0,
+                          penalty_kv=100.0 if compliant else 0.0)
     b.set_contact_params("ground", "sph1", cp)
     b.set_contact_params("sph1", "sph2", cp)
     b.set_contact_params("sph2", "sph3", cp)
-    return b.compile(device=device, dtype=dtype)
+    if compliant:
+        b.stab_max_iters = 0
+    return b
+
+
+def build_stack(device, dtype=None):
+    return make_stack().compile(device=device, dtype=dtype)
 
 
 def build_ballpush(device, dtype=None):
     """The ball-push scene of the repo's contact-MPC benchmark: a ball of
     radius 0.5 on a plane, mu=0.5, no restitution, nk=4."""
     from moby_tpu_torch.core import scene as sc
-    from moby_tpu_torch.math import quaternion as quat
 
     b = sc.SceneBuilder()
     b.set_gravity([0, 0, -9.81])
@@ -303,9 +379,7 @@ def build_ballpush(device, dtype=None):
                pos=np.array([0.0, 0.0, 0.5]))
     b.add_body("ground", enabled=False)
     b.add_geom("ball", sc.SPHERE, [0.5])
-    pq = quat.from_rpy(
-        torch.tensor([1.5707963267949, 0, 0], dtype=torch.float64)).numpy()
-    b.add_geom("ground", sc.PLANE, [0.0], quat=pq)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
     b.set_contact_params(
         "ground", "ball", sc.ContactParams(epsilon=0.0, mu_coulomb=0.5, nk=4))
     return b.compile(device=device, dtype=dtype)
@@ -844,7 +918,10 @@ def device_share(step_fn, step_seconds, n_steps=2, tag="step"):
     profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: with the host's operators recorded too, each
+    # kernel's time and launch counts twice, under its operator and under
+    # its own name
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             step_fn()
         torch.cuda.synchronize()
@@ -1079,7 +1156,6 @@ def build_blockpush(device, dtype=None):
     1 kg resting on a plane, mu=0.3, nk=4 (8 vertex slots; its QP-KKT LCP has
     n=64, the block path of `bpp_lcp`)."""
     from moby_tpu_torch.core import scene as sc
-    from moby_tpu_torch.math import quaternion as quat
 
     b = sc.SceneBuilder()
     b.set_gravity([0, 0, -9.81])
@@ -1087,9 +1163,7 @@ def build_blockpush(device, dtype=None):
                pos=np.array([0.0, 0.0, 0.2]))
     b.add_geom("block", sc.BOX, [0.2, 0.2, 0.2])
     b.add_body("ground", enabled=False)
-    pq = quat.from_rpy(
-        torch.tensor([1.5707963267949, 0, 0], dtype=torch.float64)).numpy()
-    b.add_geom("ground", sc.PLANE, [0.0], quat=pq)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
     b.set_contact_params("ground", "block", sc.ContactParams(mu_coulomb=0.3, nk=4))
     return b.compile(device=device, dtype=dtype)
 
@@ -1878,35 +1952,484 @@ def phase_art_parity(seed):
     return d02, pdrift
 
 
+# ------------------------------------------------------ other contact models
+def make_mixed():
+    """Three impact models in one step (tests/test_mixed_models.py builds its
+    islands so): the stack with nk=4 (the QP), a sphere of radius 0.5 with
+    mu=200 (the no-slip MLCP) and one with nk=0 (the NQP), each sliding at
+    1 m/s on the plane, 10 m apart, their pairs with the other islands
+    disabled."""
+    from moby_tpu_torch.core import scene as sc
+
+    b = make_stack(nk=4)
+    extra = {"noslip": sc.ContactParams(mu_coulomb=200.0, nk=4),
+             "truecone": sc.ContactParams(mu_coulomb=0.5, nk=0)}
+    for i, (n, cp) in enumerate(extra.items()):
+        b.add_body(n, mass=1.0, inertia=sc.sphere_inertia(1.0, 0.5),
+                   pos=np.array([10.0 * (i + 1), 0.0, 0.5]),
+                   lin_vel=np.array([1.0, 0.0, 0.0]))
+        b.add_geom(n, sc.SPHERE, [0.5])
+        b.set_contact_params("ground", n, cp)
+        for other in ("sph1", "sph2", "sph3") + tuple(extra)[:i]:
+            b.disabled_pairs.add(tuple(sorted((n, other))))
+    return b
+
+
+def make_chain(n=6, r=0.2, height=0.199):
+    """`n` spheres of radius r laid along +x from a disabled anchor at
+    `height` (1 mm into the plane, mu=0.5, nk=4), each joined to the next
+    (the first to the anchor) by a point constraint: bilateral rows and
+    contact in one impact problem. Neighbours touch at their joint, so
+    their pair is disabled."""
+    from moby_tpu_torch.core import scene as sc
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("anchor", enabled=False, pos=np.array([0.0, 0.0, height]))
+    names = [f"c{i}" for i in range(n)]
+    for i, nm in enumerate(names):
+        b.add_body(nm, mass=0.5, inertia=sc.sphere_inertia(0.5, r),
+                   pos=np.array([(2 * i + 1) * r, 0.0, height]))
+        b.add_geom(nm, sc.SPHERE, [r])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5, nk=4)
+    prev, prev_anchor = "anchor", [0.0, 0.0, 0.0]
+    for i, nm in enumerate(names):
+        b.set_contact_params("ground", nm, cp)
+        for other in names[i + 1:]:
+            b.set_contact_params(nm, other, cp)
+        b.add_point_constraint(prev, prev_anchor, nm, [-r, 0.0, 0.0])
+        if i:
+            b.disabled_pairs.add(tuple(sorted((prev, nm))))
+        prev, prev_anchor = nm, [r, 0.0, 0.0]
+    return b
+
+
+def make_gear_pendulum(ratio=2.0):
+    """A double pendulum (two 1 m rods of 1 kg on revolute joints about z,
+    gravity along -y) whose joints a gear couples: qd_l1 = ratio·qd_l2."""
+    from moby_tpu_torch.core import scene as sc
+    from moby_tpu_torch.dynamics import model as mdl
+
+    def link(name, parent_r):
+        j = mdl.JointDef(jtype=mdl.REVOLUTE, Xt_E=np.eye(3), Xt_r=parent_r,
+                         axis=np.array([0.0, 0, 1]))
+        return mdl.LinkDef(name=name, mass=1.0, com=np.array([0.0, -0.5, 0.0]),
+                           inertia_com=np.diag([1.0 / 12, 1e-12, 1.0 / 12]),
+                           joint=j)
+
+    m = mdl.ArticulatedModel(
+        [link("l1", np.zeros(3)), link("l2", np.array([0.0, -1.0, 0.0]))],
+        floating=False)
+    m.set_parents([-1, 0])
+    b = sc.SceneBuilder()
+    b.set_gravity([0, -9.81, 0])
+    b.add_articulated("gp", m, q0=np.array([0.6, 0.3]),
+                      qd0=np.array([0.0, 0.0]))
+    b.add_gear_constraint("gp", "l1", "l2", ratio)
+    return b
+
+
+def make_planar_box():
+    """A 0.2 m box held in the x-z plane by a planar joint to the disabled
+    ground (an ImplicitConstraint of a PlanarJoint, normal along y), spinning
+    about x and sliding as it lands on the plane (mu=0.4, nk=4)."""
+    from moby_tpu_torch.core import scene as sc
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("box", mass=1.0, inertia=sc.box_inertia(1.0, 0.2, 0.2, 0.2),
+               pos=np.array([0.0, 0.5, 0.2005]), lin_vel=np.array([0.5, 0.1, -0.3]),
+               ang_vel=np.array([3.0, 0.0, 0.0]))
+    b.add_geom("box", sc.BOX, [0.2, 0.2, 0.2])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params("ground", "box", sc.ContactParams(mu_coulomb=0.4, nk=4))
+    b.add_planar_constraint("box", "ground", [0.0, 1.0, 0.0])
+    return b
+
+
+def make_compliant_ball():
+    """tests/test_compliant.py's ball (1 kg, radius 0.5, kp=5000, kv=100,
+    stabilization off), started just touching the plane."""
+    from moby_tpu_torch.core import scene as sc
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ball", mass=1.0, inertia=sc.sphere_inertia(1.0, 0.5),
+               pos=np.array([0.0, 0.0, 0.5]), compliant=True)
+    b.add_body("ground", enabled=False)
+    b.add_geom("ball", sc.SPHERE, [0.5])
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params("ground", "ball", sc.ContactParams(
+        penalty_kp=COMPLIANT_KP, penalty_kv=100.0))
+    b.stab_max_iters = 0
+    return b
+
+
+MODEL_SCENES = {
+    "truecone": lambda: make_stack(nk=0),
+    "mixed": make_mixed,
+    "compliant": lambda: make_stack(compliant=True),
+    "chain": make_chain,
+    "gear": make_gear_pendulum,
+    "planar": make_planar_box,
+}
+
+
+def models_config(name, device, B, seed, dtype=None):
+    """(scene, state of B scenarios) of one configuration of the models
+    phases, with numpy-made per-scenario jitter from `seed`: the stacks'
+    height jitter of the step phase, a lift of the whole chain (1 mm into
+    the plane) and its anchor in [0, 2) mm, the gear pendulum's joint
+    rates, the planar box's in-plane speed."""
+    scene, st = MODEL_SCENES[name]().compile(device=device, dtype=dtype)
+    if name in ("truecone", "mixed", "compliant"):
+        return scene, jittered(st, B, seed)
+    rng = np.random.default_rng(seed)
+    st = st.expand(B)
+
+    def t(x):
+        return torch.tensor(x, dtype=st.pos.dtype, device=st.pos.device)
+
+    if name == "chain":
+        pos = st.pos.clone()
+        pos[:, :-1, 2] += t(rng.uniform(0.0, 2e-3, size=(B, 1)))
+        return scene, st.replace(pos=pos)
+    if name == "gear":
+        return scene, st.replace(qd_art=st.qd_art + t(rng.normal(size=(B, 2)) * 0.2))
+    vel = st.vel.clone()
+    vel[:, 0, 0] += t(rng.uniform(-0.2, 0.2, size=B))
+    return scene, st.replace(vel=vel)
+
+
+def phase_models(seed):
+    """The full-width runs of the other contact models: MODELS_BATCH
+    scenarios of each configuration of MODELS_STEPS through `stepper.step`
+    on the card, float32. Returns what the kernel checks and the timing
+    need, by configuration."""
+    out = {}
+    for name in MODELS_STEPS:
+        out[name] = run_model(name, seed)
+    return out
+
+
+def run_model(name, seed):
+    from moby_tpu_torch.sim import bilateral, impact, kinematics, noslip, nqp
+    from moby_tpu_torch.sim import stabilization, stepper
+    from moby_tpu_torch.solvers import hopper_lcp, lcp
+
+    B, n_steps = MODELS_BATCH, MODELS_STEPS[name]
+    scene, st = models_config(name, DEVICE, B, seed, torch.float32)
+    stepper.step(scene, st, MODELS_DT, device=DEVICE)        # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # what the path hands the kernel, from which LCP, and the LCPs as they
+    # entered `_solve_accel`; one NQP problem for counting its launches
+    recorded, entered, nqp_args = [], [], []
+    origin = {"lcp": "?"}
+    saved = (hopper_lcp.ppm_lcp, lcp._solve_accel, nqp._kappa, nqp.solve_nqp,
+             impact.resolve_impacts, noslip.solve_noslip, stabilization.stabilize)
+    wrapper, accel, kappa, solve_nqp, resolve_qp, solve_ns, stab = saved
+
+    def recording(M, q, mask, z0=None, max_piv=None):
+        recorded.append((origin["lcp"], M, q, mask, z0))
+        return wrapper(M, q, mask, z0=z0, max_piv=max_piv)
+
+    def recording_accel(M, q, mask, z0, skip, plain_fallback):
+        live = ~lcp._no_skip(skip, q)
+        entered.append((origin["lcp"], M, q, mask & live[:, None], z0))
+        return accel(M, q, mask, z0, skip, plain_fallback)
+
+    def keeping_nqp(*a, **kw):
+        if not nqp_args:
+            nqp_args.append((a, kw))
+        return solve_nqp(*a, **kw)
+
+    def tagged(tag, fn):
+        def call(*a, **kw):
+            outer, origin["lcp"] = origin["lcp"], tag
+            out = fn(*a, **kw)
+            origin["lcp"] = outer
+            return out
+        return call
+
+    hopper_lcp.ppm_lcp = recording
+    lcp._solve_accel = recording_accel
+    nqp._kappa = tagged("kappa", kappa)
+    nqp.solve_nqp = keeping_nqp
+    impact.resolve_impacts = tagged("qp", resolve_qp)
+    noslip.solve_noslip = tagged("noslip", solve_ns)
+    stabilization.stabilize = tagged("stabilization", stab)
+    recording.launches = 0
+    hopper_lcp.bpp_lcp.launches = 0
+    solved = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    vio = torch.zeros((), dtype=torch.float32, device=DEVICE)
+    t0 = time.time()
+    for _ in range(n_steps):
+        st = stepper.step(scene, st, MODELS_DT, device=DEVICE)
+        solved += (st.solver_pivots > 0).sum()
+        if scene.bilaterals:
+            _, C = bilateral.constraint_rows(scene, st, kinematics.compute(scene, st))
+            vio = torch.maximum(vio, C.abs().max())
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = recording.launches
+    (hopper_lcp.ppm_lcp, lcp._solve_accel, nqp._kappa, nqp.solve_nqp,
+     impact.resolve_impacts, noslip.solve_noslip, stabilization.stabilize) = saved
+    assert hopper_lcp.bpp_lcp.launches == 0    # the step's cascade has no bpp_lcp stage
+    assert len(recorded) == launches
+
+    for f in ("pos", "quat", "vel", "omega", "q_art", "qd_art"):
+        assert torch.isfinite(getattr(st, f)).all(), f"models {name}: {f} not finite"
+    z = st.pos[..., 2]
+    if name in ("truecone", "mixed", "compliant"):
+        zs = z[:, :3]
+        gaps = zs[:, 1:] - zs[:, :-1]
+        lowest = float((zs[:, 0] - z[:, 3] - 1.0).min())
+        # the compliant stack's springs give way: 3·mg/kp = 5.9 mm at the
+        # bottom at rest, more while the landing spheres bounce
+        sink = 2.5e-2 if name == "compliant" else 5e-3
+        assert lowest > -sink and float(gaps.min()) > 2.0 - sink, (
+            f"models {name}: the stack sank (lowest {lowest:.3e}, gap {float(gaps.min()):.3e})")
+        detail = f"lowest sphere bottom {lowest:+.3e} m, min gap {float(gaps.min()) - 2.0:+.3e} m"
+    else:
+        detail = f"max bilateral |C| over the run {float(vio):.3e}"
+        assert float(vio) < BILATERAL_VIO_LIMIT, f"models {name}: |C| = {float(vio):.3e}"
+    with_work = {}
+    for (who, _, _, m, _) in recorded:
+        with_work[who] = with_work.get(who, 0) + int(m.any(dim=1).sum())
+    calls_with_work = sum(int(bool(m.any())) for (_, _, _, m, _) in recorded)
+    rate = B * n_steps / elapsed
+    log(f"[models] {name}: B={B} steps={n_steps} dt={MODELS_DT} float32, "
+        f"K={scene.n_contacts} n_lcp={scene.n_lcp} bilateral rows="
+        f"{bilateral.total_rows(scene)}: {elapsed:.2f} s, {rate:.1f} scenario-steps/s; "
+        f"scenario-steps with an impact solve {int(solved)} of {B * n_steps}; {detail}")
+    log(f"[models] {name}: ppm_lcp launches={launches} ({launches / n_steps:.2f} a step), "
+        f"calls with work={calls_with_work}, problems with work by LCP={with_work}")
+    if name != "compliant":
+        assert int(solved) > 0, f"models {name}: no impact was ever solved"
+    # the device's busy share of one step (the profiler records kernels
+    # only: these steps issue up to 150,000 launches)
+    k, us = launches_of(lambda: stepper.step(scene, st, MODELS_DT, device=DEVICE))
+    log(f"[models] {name}: device busy {us / 1e3:.2f} ms of a "
+        f"{elapsed / n_steps * 1e3:.2f} ms step (idle share "
+        f"{1.0 - us / 1e6 / (elapsed / n_steps):.3f}), {k} kernel launches a step")
+    nqp_launches = None
+    if nqp_args and name == "truecone":
+        a, kw = nqp_args[0]
+        nqp_launches, us = launches_of(lambda: nqp.solve_nqp(*a, **kw))
+        log(f"[models] {name}: one NQP solve (B={B}, n={3 * scene.n_contacts + scene.n_limits}, "
+            f"{nqp.POWER_ITERS} + {nqp.OUTER_ITERS}x{nqp.INNER_ITERS} fixed iterations) "
+            f"takes {nqp_launches} kernel launches and {us / 1e3:.3f} ms of device time")
+    return {"launches": launches, "recorded": recorded, "entered": entered,
+            "rate": rate, "calls_with_work": calls_with_work,
+            "problems_with_work": with_work, "nqp_launches": nqp_launches,
+            "launches_a_step": k, "idle_share": 1.0 - us / 1e6 / (elapsed / n_steps)}
+
+
+def phase_kernels_models(models):
+    """`ppm_lcp` against `ppm_lcp_plain` on the LCPs the models' paths
+    recorded — the NQP's kappa pre-solves, the mixed scene's QP islands and
+    no-slip MLCPs, the chain's QP over the projected inverse inertia, and
+    stabilization — float32 as recorded and float64: the calls as the
+    cascade handed them to the kernel and the LCPs as they entered
+    `_solve_accel` (cold), by the velocity change M·z; the same LCPs made
+    strictly monotone (+0.05·I on the active block) by z. Returns the
+    largest z error."""
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    worst = 0.0
+    for name, run in models.items():
+        whos = sorted({r[0] for r in run["entered"]})
+        for who in whos:
+            handed = [r for r in run["recorded"] if r[0] == who and bool(r[3].any())][:2]
+            full = [r for r in run["entered"] if r[0] == who and bool(r[3].any())][:2]
+            n = run["recorded"][0][1].shape[1] if not full else full[0][1].shape[1]
+            # float64 where the size gate lets the kernel take it (n <= 96)
+            for dtype in [d for d in (torch.float32, torch.float64)
+                          if hopper_lcp.fits(n, d)]:
+                def cast(t):
+                    return None if t is None else t.to(dtype).contiguous()
+
+                for (_, M, q, mask, z0) in handed:
+                    check_velocity_case(f"{name} {who} as handed", cast(M), cast(q),
+                                        mask.contiguous(), cast(z0))
+                for (_, M, q, mask, _) in full:
+                    M, q, mask = cast(M), cast(q), mask.contiguous()
+                    check_velocity_case(f"{name} {who} LCPs cold", M, q, mask, None)
+                    Mr = (M + 0.05 * torch.diag_embed(mask.to(dtype))).contiguous()
+                    e, _, _ = check_case(f"{name} {who} LCPs + 0.05 I cold", Mr, q,
+                                         mask, None)
+                    worst = max(worst, e)
+    return worst
+
+
+def measure_models_kernel(models):
+    """`ppm_lcp` on the models' paths: launches a step by configuration and
+    the kernel timed on up to two calls with work of each LCP origin."""
+    picks = []
+    for name, run in models.items():
+        for who in sorted({r[0] for r in run["recorded"]}):
+            picks += [(f"{name} {who}",) + r[1:] for r in run["recorded"]
+                      if r[0] == who and bool(r[3].any())][:2]
+    out = {
+        "launches_per_step": {k: r["launches"] / MODELS_STEPS[k] for k, r in models.items()},
+        "calls_with_work": {k: r["calls_with_work"] for k, r in models.items()},
+        "scenario_steps_per_s": {k: r["rate"] for k, r in models.items()},
+        "nqp_solve_launches": {k: r["nqp_launches"] for k, r in models.items()
+                               if r["nqp_launches"] is not None},
+    }
+    if picks:
+        out["timed_on"] = time_ppm_calls(
+            picks, f"{len(picks)} of the models' calls with work ({sorted({p[0] for p in picks})})")
+    return out
+
+
+def parity_run(name, device, seed, dtype=None):
+    """(positions (steps, B, nb, 3), q_art (steps, B, nq), max |C| over the
+    run) of one configuration at MODELS_PARITY_BATCH on `device` (float32
+    on the card, float64 on the CPU)."""
+    from moby_tpu_torch.sim import bilateral, kinematics, stepper
+
+    scene, st = models_config(name, device, MODELS_PARITY_BATCH, seed, dtype)
+    pos, qa = [], []
+    vio = st.pos.new_zeros(())
+    for _ in range(MODELS_PARITY_STEPS[name]):
+        st = stepper.step(scene, st, MODELS_DT, device=device)
+        pos.append(st.pos)
+        qa.append(st.q_art)
+        if scene.bilaterals:
+            _, C = bilateral.constraint_rows(scene, st, kinematics.compute(scene, st))
+            vio = torch.maximum(vio, C.abs().max())
+    return (torch.stack(pos).double().cpu(), torch.stack(qa).double().cpu(),
+            float(vio))
+
+
+def phase_models_parity(seed):
+    """Card float32 against the port on the CPU in float64 (plain cascade)
+    for every configuration of MODEL_SCENES: the largest drift of the
+    positions and joint coordinates over the run, held to
+    MODELS_DRIFT_LIMIT; the bilateral violation on the card held to
+    BILATERAL_VIO_LIMIT; then the compliant ball settles at its spring
+    compression."""
+    from moby_tpu_torch.sim import stepper
+
+    drifts = {}
+    for name in MODEL_SCENES:
+        t0 = time.time()
+        pc, qc, vio = parity_run(name, DEVICE, seed + 1)
+        t1 = time.time()
+        pr, qr, vio_cpu = parity_run(name, "cpu", seed + 1)
+        drift = float(torch.cat([(pc - pr).flatten(), (qc - qr).flatten(),
+                                 torch.zeros(1, dtype=pc.dtype)]).abs().max())
+        drifts[name] = drift
+        log(f"[modelsparity] {name}: B={MODELS_PARITY_BATCH} steps="
+            f"{MODELS_PARITY_STEPS[name]}: max position drift {drift:.3e} (limit "
+            f"{MODELS_DRIFT_LIMIT[name]:.1e}), bilateral |C| card {vio:.3e} CPU "
+            f"{vio_cpu:.3e}; card {t1 - t0:.1f} s, CPU {time.time() - t1:.1f} s")
+        assert torch.isfinite(pc).all(), f"modelsparity {name}: not finite"
+        assert drift < MODELS_DRIFT_LIMIT[name], f"modelsparity {name}: drift {drift:.3e}"
+        assert vio < BILATERAL_VIO_LIMIT, f"modelsparity {name}: |C| {vio:.3e}"
+
+    # a reading, not a check: with a joint given twice the Gram matrix
+    # J·iM·Jᵀ is singular, and its fixed shift of 1e-12 is below float32
+    # rounding (the CPU float64 run stays finite)
+    from moby_tpu_torch.sim import bilateral, kinematics
+
+    b = make_chain(n=2)
+    b.add_point_constraint("c0", [0.2, 0.0, 0.0], "c1", [-0.2, 0.0, 0.0])
+    scene, st = b.compile(device=DEVICE)
+    st = st.expand(MODELS_PARITY_BATCH)
+    for _ in range(5):
+        st = stepper.step(scene, st, MODELS_DT, device=DEVICE)
+    _, C = bilateral.constraint_rows(scene, st, kinematics.compute(scene, st))
+    log(f"[modelsparity] a point joint given twice, float32 on the card, 5 steps: "
+        f"positions finite {bool(torch.isfinite(st.pos).all())}, max |C| "
+        f"{float(C.abs().max()):.3e}")
+
+    scene, st = make_compliant_ball().compile(device=DEVICE)
+    st = st.expand(MODELS_PARITY_BATCH)
+    for _ in range(COMPLIANT_SETTLE_STEPS):
+        st = stepper.step(scene, st, MODELS_DT, device=DEVICE)
+    depth = 0.5 - st.pos[:, 0, 2].double()
+    expect = 9.81 / COMPLIANT_KP
+    rel = float(((depth - expect) / expect).abs().max())
+    log(f"[modelsparity] compliant ball after {COMPLIANT_SETTLE_STEPS} steps: "
+        f"compression {float(depth.min()):.4e}-{float(depth.max()):.4e} m against "
+        f"mg/kp = {expect:.4e} m ({rel:.3f} off), |vz| "
+        f"{float(st.vel[:, 0, 2].abs().max()):.2e} m/s")
+    assert rel < COMPLIANT_SETTLE_RTOL, f"modelsparity: the compliant ball is {rel:.3f} off"
+    return drifts
+
+
+def phase_regress():
+    """The port's regress CLI on the repo's two scenes, on the card and with
+    `--cpu`, REGRESS_STEPS steps of REGRESS_DT each; the dumps compared by
+    the port's compare within REGRESS_TOL. (The sitting box's float32 run
+    rests 2·NEAR_ZERO = 6.9e-4 m higher: float32 stabilization parks it
+    there.)"""
+    from moby_tpu_torch.cli import compare, regress
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "moby_tpu_torch", "build", "regress")
+    os.makedirs(out_dir, exist_ok=True)
+    errs = {}
+    for xml, n_steps in REGRESS_STEPS.items():
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes", xml)
+        dumps, secs = {}, {}
+        for mode in ("card", "cpu"):
+            dumps[mode] = os.path.join(out_dir, f"{xml[:-4]}.{mode}.dat")
+            argv = [f"-s={REGRESS_DT}", f"-mi={n_steps}", path, dumps[mode]]
+            t0 = time.time()
+            assert regress.main(argv + (["--cpu"] if mode == "cpu" else [])) == 0
+            secs[mode] = time.time() - t0
+        err, where, n = compare.compare(dumps["cpu"], dumps["card"])
+        errs[xml] = err
+        log(f"[regress] {xml}: {n} lines, card float32 against --cpu float64 L-inf "
+            f"{err:.3e} (worst at line, column {where}; limit {REGRESS_TOL:.0e}); "
+            f"card {secs['card']:.1f} s, CPU {secs['cpu']:.1f} s")
+        assert n == n_steps, f"regress {xml}: {n} lines"
+        assert compare.main([dumps["cpu"], dumps["card"], str(REGRESS_TOL)]) == 0, (
+            f"regress {xml}: {err:.3e}")
+    return errs
+
+
+def time_ppm_calls(calls, label):
+    """`ppm_lcp` on a path's own calls (who, M, q, mask, z0), timed beside
+    the plain version and the bound, the kernel alone from the profiler."""
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    ms = plain_ms = bnd = 0.0
+    by = {"bytes": 0, "operations": 0}
+    pivots = 0
+    for (_, M, q, mask, z0) in calls:
+        _, _, piv, sizes = hopper_lcp.ppm_lcp_plain(M, q, mask, z0=z0,
+                                                    with_pivots=True)
+        pivots += int(piv.sum())
+        ms += time_cuda(lambda: hopper_lcp.ppm_lcp(M, q, mask, z0=z0), 20)
+        plain_ms += time_cuda(
+            lambda: hopper_lcp.ppm_lcp_plain(M, q, mask, z0=z0), 2, warmup=1)
+        b, which = bound_ms(M, mask, z0, piv, sizes)
+        bnd += b
+        by[which] += 1
+    _, M0, q0, m0, z00 = calls[0]
+    k = len(calls)
+    out = {"calls": k, "problems_with_work": sum(int(c[3].any(dim=1).sum()) for c in calls),
+           "pivots": pivots, "ms": ms / k, "plain_ms": plain_ms / k,
+           "bound_ms": bnd / k, "bound_by": max(by, key=by.get),
+           "device_ms": device_ms(lambda: hopper_lcp.ppm_lcp(M0, q0, m0, z0=z00))}
+    log(f"[timing] ppm_lcp on {label}: {out}")
+    return out
+
+
 def measure_art_kernel(art):
     """`ppm_lcp` on the table path's own calls: the calls with a non-empty
     mask (all of them if none had one), timed beside the plain version and
     the bound, the kernel alone from the profiler; and the same kernel on
     the LCPs as they entered `_solve_accel` (every problem with work, cold)."""
     from moby_tpu_torch.solvers import hopper_lcp
-
-    def timed(calls, label):
-        ms = plain_ms = bnd = 0.0
-        by = {"bytes": 0, "operations": 0}
-        pivots = 0
-        for (_, M, q, mask, z0) in calls:
-            _, _, piv, sizes = hopper_lcp.ppm_lcp_plain(M, q, mask, z0=z0,
-                                                        with_pivots=True)
-            pivots += int(piv.sum())
-            ms += time_cuda(lambda: hopper_lcp.ppm_lcp(M, q, mask, z0=z0), 20)
-            plain_ms += time_cuda(
-                lambda: hopper_lcp.ppm_lcp_plain(M, q, mask, z0=z0), 2, warmup=1)
-            b, which = bound_ms(M, mask, z0, piv, sizes)
-            bnd += b
-            by[which] += 1
-        _, M0, q0, m0, z00 = calls[0]
-        k = len(calls)
-        out = {"calls": k, "problems_with_work": sum(int(c[3].any(dim=1).sum()) for c in calls),
-               "pivots": pivots, "ms": ms / k, "plain_ms": plain_ms / k,
-               "bound_ms": bnd / k, "bound_by": max(by, key=by.get),
-               "device_ms": device_ms(lambda: hopper_lcp.ppm_lcp(M0, q0, m0, z0=z00))}
-        log(f"[timing] ppm_lcp on {label}: {out}")
-        return out
 
     with_work = [r for r in art["recorded"] if bool(r[3].any())]
     picks = (with_work or art["recorded"])[:8]
@@ -1915,8 +2438,9 @@ def measure_art_kernel(art):
         "problems_with_work": art["nonempty"], "n": picks[0][1].shape[1],
         "path": art["plan"].path, "stages": art["stages"],
         "scenario_steps_per_s": art["rate"],
-        "timed_on": timed(picks, f"{len(picks)} of the table path's calls"
-                                 + (" with work" if with_work else " (none had work)")),
+        "timed_on": time_ppm_calls(
+            picks, f"{len(picks)} of the table path's calls"
+            + (" with work" if with_work else " (none had work)")),
     }
     none = torch.zeros_like(picks[0][3])
     _, Mf, qf, _, zf = picks[0]
@@ -1927,7 +2451,7 @@ def measure_art_kernel(art):
                              torch.zeros((0, len(none)), device=DEVICE))[0],
     }
     full = [r for r in art["entered"] if bool(r[3].any())][:4]
-    entry["entered_lcps_cold"] = timed(
+    entry["entered_lcps_cold"] = time_ppm_calls(
         [(w, M, q, m, None) for (w, M, q, m, _) in full],
         f"{len(full)} of the LCPs that entered the cascade, every problem with work, cold")
     return entry
@@ -2298,19 +2822,39 @@ def main():
         art_err = phase_kernels_art(art)
         max_err = max(max_err, art_err)
         lap("kernels on the table's LCPs")
+    models = phase_models(args.seed) if "models" in phases else None
+    lap("models")
+    if "modelsparity" in phases:
+        phase_models_parity(args.seed)
+        lap("modelsparity")
+    if "regress" in phases:
+        phase_regress()
+        lap("regress")
+    if models is not None and "kernels" in phases:
+        max_err = max(max_err, phase_kernels_models(models))
+        lap("kernels on the models' LCPs")
     full_run = set(phases) == set(PHASES)
     entries = []
     table_path = measure_art_kernel(art) if art is not None else None
+    models_path = measure_models_kernel(models) if models is not None else None
     if recorded:
         entry = measure_kernel(recorded, launches, max_err)
+        # the step's, the table's and each model's runs, each counted from 0
+        entry["launches_by_path"] = {"step": launches}
         if table_path is not None:
-            # the step's and the table's runs, each counted from 0
-            entry["launches_by_path"] = {"step": launches, "table": art["launches"]}
-            entry["launches"] = launches + art["launches"]
+            entry["launches_by_path"]["table"] = art["launches"]
             entry["table_path"] = table_path
+        if models_path is not None:
+            entry["launches_by_path"].update(
+                {f"models:{k}": r["launches"] for k, r in models.items()})
+            entry["models_path"] = models_path
+        entry["launches"] = sum(entry["launches_by_path"].values())
         entries.append(entry)
-    elif table_path is not None:
-        log(f"[timing] ppm_lcp on the table path: {json.dumps(table_path)}")
+    else:
+        for label, path in (("the table path", table_path),
+                            ("the models' paths", models_path)):
+            if path is not None:
+                log(f"[timing] ppm_lcp on {label}: {json.dumps(path)}")
     block_path = measure_block_kernel(block) if block is not None else None
     if mpc_recorded:
         entry = measure_bpp(mpc_recorded, stage1, mpc_launches, bpp_err)
@@ -2327,6 +2871,8 @@ def main():
         assert len(entries) == 2 and all(e["launches"] > 0 for e in entries), (
             "a kernel of the main paths was never launched")
         assert art["launches"] > 0, "the table path never launched ppm_lcp"
+        assert all(r["launches"] > 0 for r in models.values()), (
+            "a path of the other contact models never launched ppm_lcp")
         assert block["launches"] > 0, "the block-push path never launched bpp_lcp"
     lap("timing")
     if entries:
@@ -2335,7 +2881,9 @@ def main():
         f"MPC solves/s at B={MPC_BATCH}: {mpc_rate}; block-push solves/s at "
         f"B={BLOCK_BATCH}: "
         f"{None if block is None else {k: round(m['solves_per_s'], 2) for k, m in block['modes'].items()}}; "
-        f"table scenario-steps/s at B={ART_BATCH}: {None if art is None else art['rate']}")
+        f"table scenario-steps/s at B={ART_BATCH}: {None if art is None else art['rate']}; "
+        f"models' scenario-steps/s at B={MODELS_BATCH}: "
+        f"{None if models is None else {k: round(r['rate'], 1) for k, r in models.items()}}")
     log(card)
     if not full_run:
         log(f"partial run (phases: {phases}): no result line")

@@ -20,9 +20,9 @@ fixed-shape tensors shared by every scenario of a batch:
 :class:`State` carries the batch: every field has a leading ``B``.
 
 The port covers free bodies and articulated bodies with SPHERE, PLANE and
-BOX geometry and joint limits. Pair pooling, bilateral constraints,
-compliant contact, heightmaps, meshes, the other primitives and plugin
-kernels are accepted by `SceneBuilder`'s methods and refused by
+BOX geometry, joint limits, bilateral (gear, point and planar) constraints
+and compliant bodies. Pair pooling, heightmaps, meshes, the other primitives
+and plugin kernels are accepted by `SceneBuilder`'s methods and refused by
 ``compile()`` with a ``NotImplementedError`` that names the feature. The
 mesh, heightmap and convex-hull tables of the JAX ``Scene`` (``geom_faces``,
 ``hm_heights``, ``geom_hull_normals`` ...) have no consumer yet and are not
@@ -372,15 +372,22 @@ def box_inertia(mass, hx, hy, hz):
     )
 
 
+def _np_qmul(q1, q2):
+    """Hamilton product of two xyzw quaternions, in numpy."""
+    x1, y1, z1, w1 = q1
+    x2, y2, z2, w2 = q2
+    return np.array([
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+    ])
+
+
 def _check_ported(statics: dict, kind_groups: dict):
     """Refuse what the port does not run, naming the feature."""
-    if statics.get("bilaterals"):
-        raise NotImplementedError(
-            "bilateral (gear/point/planar) constraints are not ported yet")
     if statics.get("has_dyn_slots"):
         raise NotImplementedError("pair pooling is not ported yet")
-    if statics.get("has_compliant"):
-        raise NotImplementedError("compliant contact is not ported yet")
     for key, grp in (kind_groups or {}).items():
         kind = int(grp["kind"])
         if "kernel" in grp or kind < 0:
@@ -410,7 +417,10 @@ def scene_from_arrays(fields: dict, device, dtype=None) -> Scene:
         else ABEntry(e.name, amdl.copy_model(e.model), int(e.gc_off),
                      int(e.q_off), int(e.v_off))
         for e in (fields.get("arts") or ()))
-    statics["bilaterals"] = tuple(fields.get("bilaterals") or ())
+    from ..sim import bilateral
+
+    statics["bilaterals"] = tuple(
+        bilateral.from_fields(b) for b in (fields.get("bilaterals") or ()))
     kind_groups = {}
     for key, grp in (fields.get("kind_groups") or {}).items():
         g = dict(grp)
@@ -493,6 +503,9 @@ class SceneBuilder:
         self.disabled_pairs: set[tuple[str, str]] = set()
         self.drag_lin: dict = {}
         self.drag_ang: dict = {}
+        self._gears: list = []
+        self._points: list = []
+        self._planars: list = []
         # features accepted above but refused by compile(), by name
         self._unported: list[str] = []
 
@@ -508,16 +521,26 @@ class SceneBuilder:
         self.arts.append(ab)
         return ab
 
-    # ---------------- not ported yet: recorded, refused at compile ----------
+    # ---------------- bilateral (implicit) constraints ----------------
     def add_gear_constraint(self, ab_name, link_a, link_b, ratio):
-        self._unported.append("bilateral gear constraints")
+        """Gear ratio coupling between two 1-dof joints of an articulated
+        body (`Moby::Gears`, include/Moby/Gears.h:40-45): the OUTBOARD link
+        names identify the joints."""
+        self._gears.append((ab_name, link_a, link_b, float(ratio)))
 
     def add_point_constraint(self, body1, anchor1, body2, anchor2):
-        self._unported.append("bilateral point constraints")
+        """Ball-joint loop constraint pinning two bodies' anchor points
+        (simulator-level implicit joints, src/Simulator.cpp:604-805)."""
+        self._points.append(
+            (body1, np.asarray(anchor1, float), body2, np.asarray(anchor2, float)))
 
     def add_planar_constraint(self, outboard, inboard, normal):
-        self._unported.append("bilateral planar constraints")
+        """Planar implicit joint: `outboard` translates in `inboard`'s plane
+        and rotates about its normal (Moby::PlanarJoint as a simulator-level
+        ImplicitConstraint). `normal` is given in the inboard body's frame."""
+        self._planars.append((outboard, inboard, np.asarray(normal, float)))
 
+    # ---------------- not ported yet: recorded, refused at compile ----------
     def add_custom_pair(self, body1, body2, kernel, nslots):
         self._unported.append("plugin contact kernels")
 
@@ -565,6 +588,48 @@ class SceneBuilder:
         self.gravity = np.asarray(g, np.float64)
 
     # ---------------- compile ----------------
+    def _bilaterals(self, slot_names, art_entries):
+        """The recorded gear, point and planar constraints as `Bilateral`
+        records; a planar joint's offset and relative rotation are taken
+        from the initial poses."""
+        from ..sim.bilateral import GEAR, PLANAR, POINT, Bilateral
+
+        out = []
+        for (abn, la, lb, ratio) in self._gears:
+            k = [i for i, ab in enumerate(self.arts) if ab.name == abn][0]
+            ab, ent = self.arts[k], art_entries[k]
+            m = ab.model
+            ia, ib = ab.link_names.index(la), ab.link_names.index(lb)
+            out.append(Bilateral(
+                btype=GEAR,
+                col_a=ent.gc_off + m.v_off[ia], col_b=ent.gc_off + m.v_off[ib],
+                ratio=ratio,
+                q_idx_a=ent.q_off + m.q_off[ia], q_idx_b=ent.q_off + m.q_off[ib],
+                q0_a=float(ab.q0[m.q_off[ia]]), q0_b=float(ab.q0[m.q_off[ib]]),
+            ))
+        for (b1n, a1, b2n, a2) in self._points:
+            out.append(Bilateral(
+                btype=POINT, slot_a=slot_names[b1n], slot_b=slot_names[b2n],
+                anchor_a=tuple(a1), anchor_b=tuple(a2)))
+
+        def pose(name):
+            body = next((b for b in self.bodies if b.name == name), None)
+            if body is None:
+                raise ValueError(f"planar constraint on unknown body {name}")
+            return np.asarray(body.pos, float), np.asarray(body.quat, float)
+
+        for (out_n, in_n, nrm) in self._planars:
+            (pa0, qa0), (pb0, qb0) = pose(out_n), pose(in_n)
+            nrm = nrm / max(np.linalg.norm(nrm), 1e-300)
+            qb0_inv = np.array([-qb0[0], -qb0[1], -qb0[2], qb0[3]])
+            n_w0 = _np_qmul(_np_qmul(qb0, np.append(nrm, 0.0)), qb0_inv)[:3]
+            out.append(Bilateral(
+                btype=PLANAR, slot_a=slot_names[out_n], slot_b=slot_names[in_n],
+                normal=tuple(nrm), offset0=float(n_w0 @ (pa0 - pb0)),
+                qrel0=tuple(_np_qmul(qa0, qb0_inv)),
+            ))
+        return tuple(out)
+
     def _pair_kind(self, ta, tb):
         if ta == SPHERE and tb == SPHERE:
             return K_SPHERE_SPHERE, False
@@ -601,10 +666,6 @@ class SceneBuilder:
         if self._unported:
             raise NotImplementedError(
                 f"{self._unported[0]} are not ported yet")
-        for b in self.bodies:
-            if b.compliant:
-                raise NotImplementedError(
-                    f"compliant contact (body '{b.name}') is not ported yet")
         for g in self.geoms:
             if g.gtype not in _PORTED_GEOMS:
                 raise NotImplementedError(
@@ -747,7 +808,11 @@ class SceneBuilder:
         # contact slots
         s_pair, s_s1, s_s2 = [], [], []
         s_eps, s_mu_c, s_mu_v, s_comp, s_nk = [], [], [], [], []
-        s_kp, s_kv, s_truecone = [], [], []
+        s_kp, s_kv, s_truecone, s_compliant = [], [], [], []
+
+        def _body_compliant(slot):
+            kind, k, _ = slot_owner[slot]
+            return self.bodies[k].compliant if kind == "free" else False
         # kinds whose kernels take an nslots argument and top-k to it (the
         # only ones a per-pair max_slots cap may shrink)
         _CAPPABLE = {K_PLANE_GENERIC, K_BOX_BOX}
@@ -793,6 +858,7 @@ class SceneBuilder:
                 # nk <= 0 = true cone (NQP); friction rows are then unused
                 s_nk.append(max(4, cp.nk) if cp.nk > 0 else 4)
                 s_truecone.append(cp.nk <= 0)
+                s_compliant.append(_body_compliant(s1) or _body_compliant(s2))
                 s_kp.append(cp.penalty_kp)
                 s_kv.append(cp.penalty_kv)
         K = len(s_pair)
@@ -828,6 +894,7 @@ class SceneBuilder:
                             lim_value.append(val)
                             lim_eps.append(jd.restitution or 0.0)
         NL = len(lim_gc_col)
+        bilaterals = self._bilaterals(slot_names, art_entries)
 
         kind_groups = {}
         for gkey, v in group_of.items():
@@ -841,6 +908,9 @@ class SceneBuilder:
                 "nslots": gkey[1],
             }
 
+        rigid = [not c for c in s_compliant]
+        rigid_mu = [m for m, r in zip(s_mu_c, rigid) if r]
+        rigid_tc = [t for t, r in zip(s_truecone, rigid) if r]
         fields = dict(
             mass=mass, inv_mass=inv_mass, inertia=inertia,
             inv_inertia=inv_inertia, enabled=enabled,
@@ -856,7 +926,7 @@ class SceneBuilder:
             slot_mu_c=np.array(s_mu_c, dt),
             slot_mu_v=np.array(s_mu_v, dt),
             slot_compliance=np.array(s_comp, dt),
-            slot_compliant=np.zeros(K, bool),
+            slot_compliant=np.array(s_compliant, bool) if K else np.zeros(0, bool),
             slot_truecone=np.array(s_truecone, bool) if K else np.zeros(0, bool),
             slot_kp=np.array(s_kp, dt),
             slot_kv=np.array(s_kv, dt),
@@ -881,24 +951,27 @@ class SceneBuilder:
             nv_art=nv_art, n_pairs=n_pairs, n_contacts=K,
             n_friction_rows=NF, n_limits=NL,
             vmax=vmax,
-            use_noslip=bool(K > 0 and all(m >= 1e2 for m in s_mu_c)),
-            use_nqp=bool(K > 0 and any(s_truecone)),
+            use_noslip=bool(K > 0 and all(m >= 1e2 for m in rigid_mu)
+                            and not all(s_compliant)),
+            use_nqp=bool(K > 0 and any(rigid_tc)),
             # slots disagree on the model -> islands can route differently
+            # (rigid slots only; compliant slots never reach the impact solve)
             mixed_models=bool(
                 K > 0
                 and (
-                    (any(m >= 1e2 for m in s_mu_c)
-                     and any(m < 1e2 for m in s_mu_c))
-                    or (any(s_truecone)
+                    (any(m >= 1e2 for m in rigid_mu)
+                     and any(m < 1e2 for m in rigid_mu))
+                    or (any(rigid_tc)
                         and any((not t) and m < 1e2
-                                for t, m in zip(s_truecone, s_mu_c)))
+                                for t, m in zip(rigid_tc, rigid_mu)))
                 )
             ),
-            has_compliant=False,
+            has_compliant=bool(any(s_compliant)),
             stab_max_iters=int(self.stab_max_iters),
             legacy_velocity_first=bool(self.legacy_velocity_first),
             has_dyn_slots=False,
             arts=tuple(art_entries),
+            bilaterals=bilaterals,
             kind_groups=kind_groups,
             body_names=tuple(b.name for b in self.bodies),
         )

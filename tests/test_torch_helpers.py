@@ -431,3 +431,165 @@ def assert_same_compiled(tscene, tstate, jscene, jstate):
                 if a is not None:
                     np.testing.assert_array_equal(a, np.asarray(b), err_msg=f)
             assert tl.joint.restitution == jl.joint.restitution
+
+
+# ---- the other contact models: scenes built in code, on either package ----
+
+def build_nqp_ball(sc, z0=1.0, vel=(1.2, 0.7, 0.0), mu=0.3, eps=0.0, nk=0):
+    """`tests/test_nqp.py`'s ball on a plane; nk=0 is the true friction cone
+    (the NQP model)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ball", mass=1.0, inertia=sc.sphere_inertia(1.0, 1.0),
+               pos=np.array([0, 0, z0]), lin_vel=np.array(vel, float))
+    b.add_body("ground", enabled=False)
+    b.add_geom("ball", sc.SPHERE, [1.0])
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params(
+        "ground", "ball", sc.ContactParams(epsilon=eps, mu_coulomb=mu, nk=nk))
+    return b
+
+
+def build_sliding_spheres(sc, params=((1e8, 4), (0.2, 4), (0.3, 0))):
+    """`tests/test_mixed_models.py`'s spheres sliding on one plane, 10 m
+    apart (one island each, their mutual pairs disabled), each with its own
+    (mu, nk): by default a no-slip, a QP and a true-cone (NQP) island, so
+    one step routes three impact models."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    names = [f"s{i}" for i in range(len(params))]
+    for i, n in enumerate(names):
+        b.add_body(n, mass=1.0, inertia=sc.sphere_inertia(1.0, 0.5),
+                   pos=np.array([10.0 * i, 0, 0.5]), lin_vel=np.array([1.0, 0, 0]))
+        b.add_geom(n, sc.SPHERE, [0.5])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    for n, (mu, nk) in zip(names, params):
+        b.set_contact_params(
+            "ground", n, sc.ContactParams(epsilon=0.0, mu_coulomb=mu, nk=nk))
+    for i in range(len(names)):
+        for j in range(i + 1, len(names)):
+            b.disabled_pairs.add(tuple(sorted((names[i], names[j]))))
+    return b
+
+
+def build_compliant_ball(sc, kp=5000.0, kv=100.0, z0=0.6):
+    """`tests/test_compliant.py`'s compliant ball (penalty contact,
+    stabilization off)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ball", mass=1.0, inertia=sc.sphere_inertia(1.0, 0.5),
+               pos=np.array([0.0, 0.0, z0]), compliant=True)
+    b.add_body("ground", enabled=False)
+    b.add_geom("ball", sc.SPHERE, [0.5])
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params("ground", "ball", sc.ContactParams(
+        penalty_kp=kp, penalty_kv=kv, mu_viscous=0.0))
+    b.stab_max_iters = 0
+    return b
+
+
+def build_point_chain(sc):
+    """`tests/test_bilateral.py::test_two_body_chain`: two spheres, the first
+    pinned to a disabled anchor, the second hung from it by a point joint."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, -9.81, 0])
+    b.add_body("a", mass=1.0, inertia=sc.sphere_inertia(1.0, 0.2),
+               pos=np.array([0.0, 0.0, 0.0]))
+    b.add_body("anchor", enabled=False)
+    b.add_body("c", mass=1.0, inertia=sc.sphere_inertia(1.0, 0.2),
+               pos=np.array([1.0, 0.0, 0.0]))
+    b.add_point_constraint("a", [0, 0, 0], "anchor", [0, 0, 0])
+    b.add_point_constraint("a", [0.5, 0, 0], "c", [-0.5, 0, 0])
+    return b
+
+
+def build_gear_pendulum(sc, ratio=2.0, q0=(0.6, -0.3), qd0=(0.0, 0.4)):
+    """A double pendulum (two 1 m rods of 1 kg on revolute joints about z,
+    gravity along -y) whose joints are coupled by a gear:
+    qd_l1 − ratio·qd_l2 = 0 (the velocities start off the constraint, so
+    the impact handler's λ-correction has work)."""
+    mdl = _mdl(sc)
+
+    def link(name, parent_r):
+        j = mdl.JointDef(jtype=mdl.REVOLUTE, Xt_E=np.eye(3), Xt_r=parent_r,
+                         axis=np.array([0.0, 0, 1]))
+        return mdl.LinkDef(name=name, mass=1.0, com=np.array([0.0, -0.5, 0.0]),
+                           inertia_com=np.diag([1.0 / 12, 1e-12, 1.0 / 12]),
+                           joint=j)
+
+    m = mdl.ArticulatedModel(
+        [link("l1", np.zeros(3)), link("l2", np.array([0.0, -1.0, 0.0]))],
+        floating=False)
+    m.set_parents([-1, 0])
+    b = sc.SceneBuilder()
+    b.set_gravity([0, -9.81, 0])
+    b.add_articulated("gp", m, q0=np.array(q0), qd0=np.array(qd0))
+    b.add_gear_constraint("gp", "l1", "l2", ratio)
+    return b
+
+
+def build_planar_box(sc):
+    """A box held in the x-z plane by a planar joint to the disabled ground
+    (normal along y, given in the ground's frame), spinning about x and
+    sliding as it drops onto the ground plane: the spin and the y motion
+    are removed and the box lands in-plane."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("box", mass=1.0, inertia=sc.box_inertia(1.0, 0.2, 0.2, 0.2),
+               pos=np.array([0.0, 0.5, 0.2005]), lin_vel=np.array([0.5, 0.1, -0.3]),
+               ang_vel=np.array([3.0, 0.0, 0.0]))
+    b.add_geom("box", sc.BOX, [0.2, 0.2, 0.2])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.set_contact_params("ground", "box", sc.ContactParams(mu_coulomb=0.4, nk=4))
+    b.add_planar_constraint("box", "ground", [0.0, 1.0, 0.0])
+    return b
+
+
+def build_sphere_chain(sc, n=6, r=0.2, height=1.5):
+    """`n` spheres of radius r laid out along +x from a disabled anchor at
+    height `height`, each joined to the next (and the first to the anchor)
+    by a point constraint, free to swing down onto the plane: bilateral
+    rows and contact in one impact problem. Neighbours' contact pairs are
+    disabled (they touch at their joint)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("anchor", enabled=False, pos=np.array([0.0, 0.0, height]))
+    names = [f"c{i}" for i in range(n)]
+    for i, nm in enumerate(names):
+        b.add_body(nm, mass=0.5, inertia=sc.sphere_inertia(0.5, r),
+                   pos=np.array([(2 * i + 1) * r, 0.0, height]))
+        b.add_geom(nm, sc.SPHERE, [r])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5, nk=4)
+    prev, prev_anchor = "anchor", [0.0, 0.0, 0.0]
+    for i, nm in enumerate(names):
+        b.set_contact_params("ground", nm, cp)
+        for other in names[i + 1:]:
+            b.set_contact_params(nm, other, cp)
+        b.add_point_constraint(prev, prev_anchor, nm, [-r, 0.0, 0.0])
+        if i:
+            b.disabled_pairs.add(tuple(sorted((prev, nm))))
+        prev, prev_anchor = nm, [r, 0.0, 0.0]
+    return b
+
+
+def jittered_pair(jscene, jstate, B, seed, dz=0.0, dv=0.0, dw=0.0, dqd=0.0):
+    """B scenarios of a compiled JAX state and the same B in the port
+    (float64, CPU): numpy-made height, velocity, spin and joint-rate
+    jitter of scales dz, dv, dw, dqd on the enabled bodies."""
+    rng = np.random.default_rng(seed)
+    jb = jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x, (B,) + x.shape), jstate)
+    en = np.asarray(jscene.enabled)[None, :, None]
+    nb, nv = jscene.nb, jscene.nv_art
+    pos = np.asarray(jb.pos).copy()
+    pos[..., 2:] += en[..., :1] * rng.uniform(size=(B, nb, 1)) * dz
+    vel = np.asarray(jb.vel) + en * rng.normal(size=(B, nb, 3)) * dv
+    omega = np.asarray(jb.omega) + en * rng.normal(size=(B, nb, 3)) * dw
+    qd = np.asarray(jb.qd_art) + rng.normal(size=(B, nv)) * dqd
+    jb = jb.replace(pos=jnp.asarray(pos), vel=jnp.asarray(vel),
+                    omega=jnp.asarray(omega), qd_art=jnp.asarray(qd))
+    return jb, tsc.state_from_arrays(jax_fields(jb), "cpu", torch.float64)

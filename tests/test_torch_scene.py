@@ -17,8 +17,10 @@ from moby_tpu_torch.core import scene as tsc
 from moby_tpu_torch.dynamics import model as tmdl
 from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
-    assert_same_fields, build_ballpush, build_box_on_box, build_box_on_plane,
-    build_stack, jax_fields, pendulum_model, torch_scene_state,
+    assert_same_compiled, assert_same_fields, build_ballpush, build_box_on_box,
+    build_box_on_plane, build_compliant_ball, build_gear_pendulum,
+    build_planar_box, build_sphere_chain, build_stack, jax_fields,
+    pendulum_model, torch_scene_state,
 )
 
 SCENES = {
@@ -98,20 +100,8 @@ def _unported_features():
     def pool(b):
         b.set_pair_pool(tsc.SPHERE, tsc.SPHERE, 4)
 
-    def gear(b):
-        b.add_gear_constraint("arm", "a", "b", 2.0)
-
-    def point(b):
-        b.add_point_constraint("sph1", [0, 0, 0], "sph2", [0, 0, 0])
-
-    def planar(b):
-        b.add_planar_constraint("sph1", "ground", [0, 0, 1])
-
     def plugin(b):
         b.add_custom_pair("sph1", "sph2", lambda *a: None, 1)
-
-    def compliant(b):
-        b.add_body("soft", mass=1.0, compliant=True)
 
     def heightmap(b):
         b.add_geom("sph1", tsc.HEIGHTMAP, [1.0, 1.0], heights=np.zeros((2, 2)))
@@ -127,8 +117,7 @@ def _unported_features():
         b.add_geom("sph1", tsc.TORUS, [1.0, 0.2])
 
     return {f.__name__: f for f in (
-        articulated, pool, gear, point, planar, plugin, compliant, heightmap,
-        trimesh, cylinder, torus)}
+        articulated, pool, plugin, heightmap, trimesh, cylinder, torus)}
 
 
 @pytest.mark.parametrize("feature", list(_unported_features()))
@@ -137,3 +126,34 @@ def test_unported_features_raise_at_compile(feature):
     _unported_features()[feature](b)
     with pytest.raises(NotImplementedError, match="not ported"):
         b.compile(device="cpu")
+
+
+MODEL_SCENES = {
+    "gear": build_gear_pendulum,
+    "point": lambda sc: build_sphere_chain(sc, n=3),
+    "planar": build_planar_box,
+    "compliant": lambda sc: build_compliant_ball(sc),
+}
+
+
+@pytest.mark.parametrize("name", list(MODEL_SCENES))
+def test_contact_models_compile_matches_jax(name):
+    """Gear, point and planar constraints and compliant bodies, refused
+    before the port ran them, compile to the JAX package's arrays, statics
+    and bilateral records, from the port's `SceneBuilder` and carried across."""
+    jscene, jstate = MODEL_SCENES[name](jsc).compile()
+    tscene, tstate = MODEL_SCENES[name](tsc).compile(device="cpu")
+    assert_same_compiled(tscene, tstate, jscene, jstate)
+    carried, _ = torch_scene_state(jscene, jstate)
+    for ts in (tscene, carried):
+        assert len(ts.bilaterals) == len(jscene.bilaterals)
+        for tb, jb in zip(ts.bilaterals, jscene.bilaterals):
+            for f in dataclasses.fields(tb):
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(tb, f.name)), np.asarray(getattr(jb, f.name)),
+                    err_msg=f.name)
+    if name == "compliant":
+        assert tscene.has_compliant and not tscene.use_noslip
+        assert bool(tscene.slot_compliant.all())
+    else:
+        assert len(tscene.bilaterals) == {"gear": 1, "point": 3, "planar": 1}[name]

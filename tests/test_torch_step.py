@@ -127,12 +127,16 @@ def test_step_refuses_other_device_and_unported_models():
     assert noslip.use_noslip
     st2 = tstep.step(noslip, st2, DT, device="cpu")
     assert torch.isfinite(st2.pos).all() and float(st2.time[0]) == pytest.approx(DT)
+    # so are the true cone (NQP) and per-island mixed routing
     nqp, st3 = one_pair(tsc.ContactParams(mu_coulomb=0.5, nk=0))
-    with pytest.raises(NotImplementedError, match="NQP"):
-        tstep.step(nqp, st3, DT, device="cpu")
+    assert nqp.use_nqp and not nqp.mixed_models
+    st3 = tstep.step(nqp, st3, DT, device="cpu")
+    assert torch.isfinite(st3.pos).all() and int(st3.solver_pivots[0]) > 0
     mixed, st4 = build_stack(tsc, nk=4, mu=200.0).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="mixed"):
-        tstep.step(mixed, st4, DT, device="cpu")
+    assert mixed.mixed_models
+    st4 = tstep.step(mixed, st4, DT, device="cpu")
+    assert torch.isfinite(st4.pos).all() and float(st4.time[0]) == pytest.approx(DT)
+    # the legacy velocity-first step is still refused
     legacy = scene.replace(legacy_velocity_first=True)
     with pytest.raises(NotImplementedError, match="legacy"):
         tstep.step(legacy, st, DT, device="cpu")
@@ -145,6 +149,8 @@ def test_import_pulls_in_neither_jax_nor_triton():
         "from moby_tpu_torch import config\n"
         "from moby_tpu_torch.core import scene\n"
         "from moby_tpu_torch.sim import stepper, impact, stabilization, kinematics\n"
+        "from moby_tpu_torch.sim import nqp, bilateral\n"
+        "from moby_tpu_torch.cli import regress, compare\n"
         "from moby_tpu_torch.solvers import lcp, hopper_lcp\n"
         "from moby_tpu_torch.geometry import narrowphase\n"
         "from moby_tpu_torch.math import quaternion, so3, spatial, linalg\n"
