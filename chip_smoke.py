@@ -11,7 +11,9 @@ It needs no network and no JAX. Phases, each of which fails the run:
 2. build   — compiles `moby_tpu_torch/csrc/ppm_lcp.cu` and `bpp_lcp.cu` with
              nvcc (both at once), loads them, and prints the registers,
              static shared memory and spills of every kernel instantiation
-             (group path at G = 8, 16, 32 and block path, float and double).
+             (group path at G = 8, 16, 32 and block path, float and double);
+             then `native/hull.cpp` (the convex hull scene compilation uses)
+             with g++.
 3. kernels — `hopper_lcp.ppm_lcp` against `ppm_lcp_plain` and
              `hopper_lcp.bpp_lcp` against `bpp_lcp_plain` on the card, float32
              and float64, at the contact step's shapes (n=66 and n=6, B=512)
@@ -123,6 +125,36 @@ It needs no network and no JAX. Phases, each of which fails the run:
              200 steps of dt=1e-3 (the table 30), on the card and with
              `--cpu`; the two dumps compared by the port's `compare` within
              5e-3.
+16. geometry — curved solids on a plane and convex polyhedra at full width,
+             float32, B=512, dt=1e-3, each body lifted by [0, 0.2) mm from
+             `--seed` and dropped at 0.4 m/s, 8 steps through
+             `stepper.step`, each body 1 t: "curved", a cylinder
+             (r=0.5, h=1) on its side spinning about its axis, a cone
+             (r=0.6, h=1.2) base down and a torus (R=1, r=0.25) flat on one
+             plane (narrow-phase kinds 4, 10, 5); "octastack", two
+             octahedra stacked face down on the plane (kinds 3 and 9); and
+             "platforms", an octahedron tip down on a BOX platform and a
+             polyhedral cube on a polyhedral slab (kind 9). Kind 9 is GJK
+             with the exact MTV over the hull directions. (One impact LCP
+             covers a scene: the three kind-9 pairs in one scene would make
+             it n >= 192, past what `ppm_lcp` takes in float32.) For
+             each: scenario-steps/s, the device's busy share and launches
+             a step, the launches of one `narrow_phase` call, `ppm_lcp`'s
+             launches (counts set to 0 just before, read just after) and
+             calls with work. With the kernels phase, `ppm_lcp` is then held
+             against `ppm_lcp_plain` on the LCPs these runs recorded (the
+             QP's by its velocity change H·x, as block-push's: the coplanar
+             contacts make the multiplier rows of M·z not unique).
+17. geometryparity — the three configurations at B=4 over 12-20 steps, card
+             float32 against the port on the CPU in float64 (the largest
+             position drift within GEOM_DRIFT_LIMIT, five times the CPU
+             float32 reading); the cylinder's axis stays above r - 1e-3 and
+             the octahedron rests on the platform within 1e-3 of 0.65 m in
+             CPU float64 (within 1e-3 + 2·NEAR_ZERO on the card: float32
+             stabilization parks a resting body that high); then
+             the regress CLI on a scene of <Cylinder>, <Cone>, <Torus> and a
+             <Polyhedron> OBJ written to a temporary directory, 200 steps on
+             the card and with `--cpu`, within 5e-3 by `compare`.
 
 Then each kernel is timed on the inputs the main paths really gave it,
 beside its plain version, its bound and its launch floor (the same call with
@@ -133,8 +165,8 @@ the card's name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device the script exits with a non-zero code and no result.
 `--phases kernels`, `--phases mpc`, `--phases block,blockparity,artmpc`,
-`--phases art` or `--phases models,modelsparity,regress` are the short runs
-(no result line).
+`--phases art`, `--phases models,modelsparity,regress` or
+`--phases geometry,geometryparity` are the short runs (no result line).
 """
 
 import argparse
@@ -149,7 +181,7 @@ import torch
 
 PHASES = ("device", "build", "kernels", "step", "parity", "mpc", "mpcparity",
           "block", "blockparity", "artmpc", "art", "artparity", "models",
-          "modelsparity", "regress")
+          "modelsparity", "regress", "geometry", "geometryparity")
 BATCH = 512          # scenarios of the full-width step
 MPC_BATCH = 1536     # scenarios of the full-width contact-MPC solve
 MPC_HORIZON = 50     # steps of dt = MPC_DT in the MPC's horizon
@@ -255,6 +287,38 @@ COMPLIANT_SETTLE_STEPS = 200
 COMPLIANT_SETTLE_RTOL = 0.1  # of the spring compression mg/kp
 # steps of each regress dump: the table takes 0.35-0.45 s a step on the
 # card at B=1 (its CPU float64 run 0.05 s), so it runs 30
+GEOM_BATCH = 512           # scenarios of each full-width geometry run
+GEOM_DT = 1e-3
+GEOM_LIFT = 2e-4           # each body starts up to this far above its rest (--seed)
+# every body is dropped at this speed onto its support: float32
+# stabilization holds a resting body 2·NEAR_ZERO up until it falls faster
+# than NEAR_ZERO a step (ROADMAP §3), which would put the first impacts some
+# 37 steps in
+GEOM_DROP = 0.4            # m/s
+GEOM_STEPS = {"curved": 8, "octastack": 8, "platforms": 8}
+GEOM_PARITY_BATCH = 4
+# short runs keep both geometry phases near 150 s: kind 9's GJK costs ~0.5 s
+# a step at B=4 in launches (NVIDIA H100 80GB HBM3, 700 W), and once the
+# spinning cylinder rests on its side the CPU float64 reference can run the
+# CA loop its 1,024 iterations a step (~1.4 s a step on that machine's
+# host; the JAX package does the same)
+GEOM_PARITY_STEPS = {"curved": 12, "octastack": 20, "platforms": 20}
+# 5x the largest position drift of the port's CPU float32 run against its
+# CPU float64 run of the same configuration, B=4, seed 1, GEOM_PARITY_STEPS
+# (`scripts/geometry_float32.py drift`): 1.381e-3, 2.454e-3, 1.366e-3
+GEOM_DRIFT_LIMIT = {"curved": 6.9e-3, "octastack": 1.23e-2, "platforms": 6.83e-3}
+CYL_MIN_Z = 0.5 - 1e-3     # the cylinder's axis above the plane: r - 1e-3
+NEAR_ZERO_F32 = float(np.sqrt(np.finfo(np.float32).eps))
+OCTA_REST_Z = 0.65         # tests/test_gjk.py::test_octahedron_rests_on_box
+OCTA_REST_TOL = 1e-3
+GEOM_REGRESS_STEPS = 200
+# every body of the geometry configurations weighs 1 t (inertia to match):
+# rigid motion does not depend on mass, but the LCP's float32 tolerance
+# m·‖M‖∞·eps does, and with the tests' 1 kg bodies a resting convex
+# manifold's far corner contacts raise it past NEAR_ZERO, so that an
+# approach slower than it is never solved and the mini-step loop stops
+# (ROADMAP §3)
+GEOM_MASS = 1000.0
 REGRESS_STEPS = {"sitting-box.xml": 200, "fixed-articulated-table.xml": 30}
 REGRESS_DT = 1e-3
 REGRESS_TOL = 5e-3          # scripts/tpu_smoke.py's table drift at 0.2 s
@@ -434,12 +498,16 @@ def stack_kkt(B, seed, dtype):
 
 # ------------------------------------------------------------------ phases
 def phase_build():
+    from moby_tpu_torch.geometry import hull
     from moby_tpu_torch.solvers import hopper_lcp
 
     t0 = time.time()
     paths = hopper_lcp.build(force=True)
     hopper_lcp._load()
     log(f"[build] nvcc -> {sorted(paths.values())} in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    log(f"[build] g++ -> {hull.build(force=True)} (the convex hull of BOX and "
+        f"POLYHEDRON geometry at compile) in {time.time() - t0:.1f} s")
     for line in hopper_lcp.build_log.splitlines():
         if "error" in line.lower():
             log(f"[build] {line.strip()}")
@@ -1813,8 +1881,9 @@ def check_velocity_case(name, M, q, mask, z0):
     return err
 
 
-def check_qp_velocity_case(name, M, q, mask, z0, nv, **kw):
-    """`bpp_lcp` against `bpp_lcp_plain` on block-push's QP-KKT LCPs
+def check_qp_velocity_case(name, M, q, mask, z0, nv, solver="bpp", **kw):
+    """`bpp_lcp` against `bpp_lcp_plain` (or `ppm_lcp` against
+    `ppm_lcp_plain`, `solver="ppm"`) on block-push's QP-KKT LCPs
     [[H, -Gᵀ], [G, 0]] (x = z[:nv] the QP's nonnegative impulse variables,
     H = DᵀAD with A the Delassus matrix), whose z is not unique: four
     coplanar contacts, so pivot ties are decided by rounding. Every problem
@@ -1823,7 +1892,9 @@ def check_qp_velocity_case(name, M, q, mask, z0, nv, **kw):
     velocity change in the QP's variables, H·x (unique for exact solutions
     of a convex QP, where the multiplier rows of M·z are not), must agree
     within 2·sqrt(‖M‖∞·ztol·‖z‖∞), the spread of two bases accepted at the
-    pivoting's zero tolerance ztol = m·‖M‖∞·eps. In float64 `done` is read,
+    pivoting's zero tolerance ztol = m·‖M‖∞·eps. For `ppm_lcp` `done` may
+    differ on up to 15% of the batch, as on the stack's KKT problems
+    (`check_kkt_case`). In float64 `bpp_lcp`'s `done` is read,
     not held: whether a problem finishes is decided by rounding there, as a
     pivot of the singular system is exactly 0 in one elimination and about
     1e-17·‖M‖∞ in the other (tests/test_torch_mpc_single.py::
@@ -1831,11 +1902,16 @@ def check_qp_velocity_case(name, M, q, mask, z0, nv, **kw):
     ratio of the difference to the bound."""
     from moby_tpu_torch.solvers import lcp
 
-    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0, solver="bpp", **kw)
+    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0, solver=solver, **kw)
     both = dk & dp & mask.any(dim=1)
-    if M.dtype == torch.float32:
-        assert bool((dk == dp).all()), (
-            f"{name}: done differs on {int((dk != dp).sum())} of {len(dk)} problems")
+    n_diff = int((dk != dp).sum())
+    if solver == "ppm":
+        # PPM's first-minimum rule meets the mirrored friction columns' ties
+        # (check_kkt_case's rule)
+        assert n_diff <= 0.15 * len(dk), (
+            f"{name}: done differs on {n_diff} of {len(dk)} problems")
+    elif M.dtype == torch.float32:
+        assert n_diff == 0, f"{name}: done differs on {n_diff} of {len(dk)} problems"
     Mp, _ = lcp.pad_lcp(M, q, mask)
     dv = (Mp[:, :nv, :nv] @ (zk - zp)[:, :nv, None])[..., 0].abs().amax(dim=1)
     nrm = lcp._masked_norm_inf(Mp, mask)
@@ -1849,7 +1925,7 @@ def check_qp_velocity_case(name, M, q, mask, z0, nv, **kw):
     ratio = float((dv / bound)[both].max())
     full = float((Mp @ (zk - zp)[..., None])[..., 0].abs().amax(dim=1)[both].max())
     log(f"[kernels] {name:44s} {str(M.dtype)[6:]:8s} B={M.shape[0]} n={M.shape[1]} "
-        f"done kernel={int(dk.sum())} plain={int(dp.sum())} differ={int((dk != dp).sum())}: "
+        f"done kernel={int(dk.sum())} plain={int(dp.sum())} differ={n_diff}: "
         f"H·x err={float(dv[both].max()):.3e}, {ratio:.3f} of its bound (median bound "
         f"{float(bound[both].median()):.3e}); M·z err={full:.3e}")
     assert ratio <= 1.0, f"{name}: H·x differs by {ratio:.3f} of its bound"
@@ -2115,18 +2191,20 @@ def phase_models(seed):
     return out
 
 
-def run_model(name, seed):
-    from moby_tpu_torch.sim import bilateral, impact, kinematics, noslip, nqp
-    from moby_tpu_torch.sim import stabilization, stepper
+def recorded_run(scene, st, n_steps, dt, on_step=None):
+    """`n_steps` steps of `stepper.step` on the card after a warm-up step,
+    with `ppm_lcp`'s count set to 0 just before and read just after, and
+    what the path handed the kernel recorded by LCP origin (the NQP's kappa
+    pre-solves, the QP, the no-slip MLCP, stabilization) beside the LCPs as
+    they entered `_solve_accel`, and one NQP problem for counting its
+    launches. `on_step(st)` runs after each step. Returns
+    (state, seconds, scenario-steps with an impact solve, recorded,
+    entered, nqp_args, launches)."""
+    from moby_tpu_torch.sim import impact, noslip, nqp, stabilization, stepper
     from moby_tpu_torch.solvers import hopper_lcp, lcp
 
-    B, n_steps = MODELS_BATCH, MODELS_STEPS[name]
-    scene, st = models_config(name, DEVICE, B, seed, torch.float32)
-    stepper.step(scene, st, MODELS_DT, device=DEVICE)        # warm-up, not counted
+    stepper.step(scene, st, dt, device=DEVICE)        # warm-up, not counted
     torch.cuda.synchronize()
-
-    # what the path hands the kernel, from which LCP, and the LCPs as they
-    # entered `_solve_accel`; one NQP problem for counting its launches
     recorded, entered, nqp_args = [], [], []
     origin = {"lcp": "?"}
     saved = (hopper_lcp.ppm_lcp, lcp._solve_accel, nqp._kappa, nqp.solve_nqp,
@@ -2165,21 +2243,48 @@ def run_model(name, seed):
     recording.launches = 0
     hopper_lcp.bpp_lcp.launches = 0
     solved = torch.zeros((), dtype=torch.int64, device=DEVICE)
-    vio = torch.zeros((), dtype=torch.float32, device=DEVICE)
     t0 = time.time()
-    for _ in range(n_steps):
-        st = stepper.step(scene, st, MODELS_DT, device=DEVICE)
-        solved += (st.solver_pivots > 0).sum()
+    try:
+        for _ in range(n_steps):
+            st = stepper.step(scene, st, dt, device=DEVICE)
+            solved += (st.solver_pivots > 0).sum()
+            if on_step is not None:
+                on_step(st)
+        torch.cuda.synchronize()
+    finally:
+        (hopper_lcp.ppm_lcp, lcp._solve_accel, nqp._kappa, nqp.solve_nqp,
+         impact.resolve_impacts, noslip.solve_noslip, stabilization.stabilize) = saved
+    elapsed = time.time() - t0
+    launches = recording.launches
+    assert hopper_lcp.bpp_lcp.launches == 0    # the step's cascade has no bpp_lcp stage
+    assert len(recorded) == launches
+    return st, elapsed, int(solved), recorded, entered, nqp_args, launches
+
+
+def kernel_work(recorded):
+    """(calls with work, problems with work by LCP origin) of recorded
+    `ppm_lcp` calls."""
+    with_work = {}
+    for (who, _, _, m, _) in recorded:
+        with_work[who] = with_work.get(who, 0) + int(m.any(dim=1).sum())
+    return sum(int(bool(m.any())) for (_, _, _, m, _) in recorded), with_work
+
+
+def run_model(name, seed):
+    from moby_tpu_torch.sim import bilateral, kinematics, nqp, stepper
+
+    B, n_steps = MODELS_BATCH, MODELS_STEPS[name]
+    scene, st = models_config(name, DEVICE, B, seed, torch.float32)
+    vio = torch.zeros((), dtype=torch.float32, device=DEVICE)
+
+    def violation(st):
+        nonlocal vio
         if scene.bilaterals:
             _, C = bilateral.constraint_rows(scene, st, kinematics.compute(scene, st))
             vio = torch.maximum(vio, C.abs().max())
-    torch.cuda.synchronize()
-    elapsed = time.time() - t0
-    launches = recording.launches
-    (hopper_lcp.ppm_lcp, lcp._solve_accel, nqp._kappa, nqp.solve_nqp,
-     impact.resolve_impacts, noslip.solve_noslip, stabilization.stabilize) = saved
-    assert hopper_lcp.bpp_lcp.launches == 0    # the step's cascade has no bpp_lcp stage
-    assert len(recorded) == launches
+
+    st, elapsed, solved, recorded, entered, nqp_args, launches = recorded_run(
+        scene, st, n_steps, MODELS_DT, violation)
 
     for f in ("pos", "quat", "vel", "omega", "q_art", "qd_art"):
         assert torch.isfinite(getattr(st, f)).all(), f"models {name}: {f} not finite"
@@ -2197,19 +2302,16 @@ def run_model(name, seed):
     else:
         detail = f"max bilateral |C| over the run {float(vio):.3e}"
         assert float(vio) < BILATERAL_VIO_LIMIT, f"models {name}: |C| = {float(vio):.3e}"
-    with_work = {}
-    for (who, _, _, m, _) in recorded:
-        with_work[who] = with_work.get(who, 0) + int(m.any(dim=1).sum())
-    calls_with_work = sum(int(bool(m.any())) for (_, _, _, m, _) in recorded)
+    calls_with_work, with_work = kernel_work(recorded)
     rate = B * n_steps / elapsed
     log(f"[models] {name}: B={B} steps={n_steps} dt={MODELS_DT} float32, "
         f"K={scene.n_contacts} n_lcp={scene.n_lcp} bilateral rows="
         f"{bilateral.total_rows(scene)}: {elapsed:.2f} s, {rate:.1f} scenario-steps/s; "
-        f"scenario-steps with an impact solve {int(solved)} of {B * n_steps}; {detail}")
+        f"scenario-steps with an impact solve {solved} of {B * n_steps}; {detail}")
     log(f"[models] {name}: ppm_lcp launches={launches} ({launches / n_steps:.2f} a step), "
         f"calls with work={calls_with_work}, problems with work by LCP={with_work}")
     if name != "compliant":
-        assert int(solved) > 0, f"models {name}: no impact was ever solved"
+        assert solved > 0, f"models {name}: no impact was ever solved"
     # the device's busy share of one step (the profiler records kernels
     # only: these steps issue up to 150,000 launches)
     k, us = launches_of(lambda: stepper.step(scene, st, MODELS_DT, device=DEVICE))
@@ -2224,20 +2326,24 @@ def run_model(name, seed):
             f"{nqp.POWER_ITERS} + {nqp.OUTER_ITERS}x{nqp.INNER_ITERS} fixed iterations) "
             f"takes {nqp_launches} kernel launches and {us / 1e3:.3f} ms of device time")
     return {"launches": launches, "recorded": recorded, "entered": entered,
-            "rate": rate, "calls_with_work": calls_with_work,
+            "rate": rate, "calls_with_work": calls_with_work, "steps": n_steps,
             "problems_with_work": with_work, "nqp_launches": nqp_launches,
             "launches_a_step": k, "idle_share": 1.0 - us / 1e6 / (elapsed / n_steps)}
 
 
-def phase_kernels_models(models):
-    """`ppm_lcp` against `ppm_lcp_plain` on the LCPs the models' paths
-    recorded — the NQP's kappa pre-solves, the mixed scene's QP islands and
-    no-slip MLCPs, the chain's QP over the projected inverse inertia, and
+def phase_kernels_models(models, qp_nv=None):
+    """`ppm_lcp` against `ppm_lcp_plain` on the LCPs the models' (or the
+    geometry's) paths recorded — the NQP's kappa pre-solves, the mixed
+    scene's QP islands and no-slip MLCPs, the chain's QP over the projected
+    inverse inertia, the curved and convex contacts' QPs, and
     stabilization — float32 as recorded and float64: the calls as the
     cascade handed them to the kernel and the LCPs as they entered
     `_solve_accel` (cold), by the velocity change M·z; the same LCPs made
-    strictly monotone (+0.05·I on the active block) by z. Returns the
-    largest z error."""
+    strictly monotone (+0.05·I on the active block) by z. `qp_nv` maps a
+    configuration to its QP's variable count: its QP-KKT LCPs are then held
+    by the QP's velocity change H·x (`check_qp_velocity_case`), since the
+    curved solids' and polyhedra's coplanar contacts make H singular and the
+    multiplier rows of M·z not unique. Returns the largest z error."""
     from moby_tpu_torch.solvers import hopper_lcp
 
     worst = 0.0
@@ -2253,12 +2359,20 @@ def phase_kernels_models(models):
                 def cast(t):
                     return None if t is None else t.to(dtype).contiguous()
 
+                nv = (qp_nv or {}).get(name) if who == "qp" else None
+
+                def check(label, M, q, mask, z0):
+                    if nv is None:
+                        check_velocity_case(label, M, q, mask, z0)
+                    else:
+                        check_qp_velocity_case(label, M, q, mask, z0, nv, solver="ppm")
+
                 for (_, M, q, mask, z0) in handed:
-                    check_velocity_case(f"{name} {who} as handed", cast(M), cast(q),
-                                        mask.contiguous(), cast(z0))
+                    check(f"{name} {who} as handed", cast(M), cast(q),
+                          mask.contiguous(), cast(z0))
                 for (_, M, q, mask, _) in full:
                     M, q, mask = cast(M), cast(q), mask.contiguous()
-                    check_velocity_case(f"{name} {who} LCPs cold", M, q, mask, None)
+                    check(f"{name} {who} LCPs cold", M, q, mask, None)
                     Mr = (M + 0.05 * torch.diag_embed(mask.to(dtype))).contiguous()
                     e, _, _ = check_case(f"{name} {who} LCPs + 0.05 I cold", Mr, q,
                                          mask, None)
@@ -2266,16 +2380,17 @@ def phase_kernels_models(models):
     return worst
 
 
-def measure_models_kernel(models):
-    """`ppm_lcp` on the models' paths: launches a step by configuration and
-    the kernel timed on up to two calls with work of each LCP origin."""
+def measure_models_kernel(models, label="the models'"):
+    """`ppm_lcp` on the models' (or the geometry's) paths: launches a step by
+    configuration and the kernel timed on up to two calls with work of each
+    LCP origin."""
     picks = []
     for name, run in models.items():
         for who in sorted({r[0] for r in run["recorded"]}):
             picks += [(f"{name} {who}",) + r[1:] for r in run["recorded"]
                       if r[0] == who and bool(r[3].any())][:2]
     out = {
-        "launches_per_step": {k: r["launches"] / MODELS_STEPS[k] for k, r in models.items()},
+        "launches_per_step": {k: r["launches"] / r["steps"] for k, r in models.items()},
         "calls_with_work": {k: r["calls_with_work"] for k, r in models.items()},
         "scenario_steps_per_s": {k: r["rate"] for k, r in models.items()},
         "nqp_solve_launches": {k: r["nqp_launches"] for k, r in models.items()
@@ -2283,7 +2398,7 @@ def measure_models_kernel(models):
     }
     if picks:
         out["timed_on"] = time_ppm_calls(
-            picks, f"{len(picks)} of the models' calls with work ({sorted({p[0] for p in picks})})")
+            picks, f"{len(picks)} of {label} calls with work ({sorted({p[0] for p in picks})})")
     return out
 
 
@@ -2361,6 +2476,349 @@ def phase_models_parity(seed):
         f"mg/kp = {expect:.4e} m ({rel:.3f} off), |vz| "
         f"{float(st.vel[:, 0, 2].abs().max()):.2e} m/s")
     assert rel < COMPLIANT_SETTLE_RTOL, f"modelsparity: the compliant ball is {rel:.3f} off"
+    return drifts
+
+
+# ---------------------------------------------------------------- geometry
+S2 = float(np.sqrt(0.5))
+Q_Y_TO_X = np.array([0.0, 0.0, -S2, S2])    # local Y -> world x
+Q_Y_TO_Z = np.array([S2, 0.0, 0.0, S2])     # local Y -> world z
+OCTA = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1],
+                 [0, 0, -1.0]])
+
+
+def cube_verts(h):
+    return np.array([[sx * h, sy * h, sz * h] for sx in (-1, 1)
+                     for sy in (-1, 1) for sz in (-1, 1)], np.float64)
+
+
+def make_curved():
+    """Bodies of GEOM_MASS: a cylinder (r=0.5, h=1) on its side spinning at
+    2 rad/s about its
+    axis, a cone (r=0.6, h=1.2) base down and a torus (R=1, r=0.25) lying
+    flat, on one plane (mu=0.5, nk=4; kinds 4, 10 and 5); the pairs between
+    the curved bodies are support pairs, of a later slice, and disabled."""
+    from moby_tpu_torch.core import scene as sc
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    m = GEOM_MASS
+    cone_i = m * np.diag([0.1 * 1.44 + 0.15 * 0.36, 0.36 / 3.0, 0.1 * 1.44 + 0.15 * 0.36])
+    torus_i = m * np.diag([0.5 + 0.625 * 0.0625, 0.5 + 0.625 * 0.0625, 1.0 + 0.75 * 0.0625])
+    b.add_body("cyl", mass=m, inertia=sc.cylinder_inertia(m, 0.5, 1.0),
+               pos=np.array([0.0, 0.0, 0.5]), quat=Q_Y_TO_X,
+               ang_vel=np.array([2.0, 0.0, 0.0]))
+    b.add_geom("cyl", sc.CYLINDER, [0.5, 1.0])
+    b.add_body("cone", mass=m, inertia=cone_i, pos=np.array([3.0, 0.0, 0.6]),
+               quat=Q_Y_TO_Z)
+    b.add_geom("cone", sc.CONE, [0.6, 1.2])
+    b.add_body("torus", mass=m, inertia=torus_i, pos=np.array([-3.5, 0.0, 0.25]))
+    b.add_geom("torus", sc.TORUS, [1.0, 0.25])
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5, nk=4)
+    names = ("cyl", "cone", "torus")
+    for i, n in enumerate(names):
+        b.set_contact_params("ground", n, cp)
+        for m in names[i + 1:]:
+            b.disabled_pairs.add(tuple(sorted((n, m))))
+    return b
+
+
+def make_octastack():
+    """Two octahedra (POLYHEDRON, 0.5 m to their tips, GEOM_MASS each) stacked face down on
+    the plane (tests/test_convex_manifold.py:142; mu=0.5): kind 3 for the
+    plane, kind 9 between them. K = 6 + 6 + 8 slots, an LCP of n = 160, the
+    largest `ppm_lcp` takes in float32."""
+    from moby_tpu_torch.core import scene as sc
+
+    n = np.ones(3) / np.sqrt(3.0)
+    axis = np.cross(n, [0.0, 0.0, -1.0])
+    axis /= np.linalg.norm(axis)
+    ang = np.arccos(-n[2])
+    q_fd = np.concatenate([axis * np.sin(ang / 2), [np.cos(ang / 2)]])
+    r_in = 0.5 / np.sqrt(3.0)
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    for name, z in (("o1", r_in), ("o2", 3 * r_in)):
+        b.add_body(name, mass=GEOM_MASS, inertia=np.eye(3) * 0.05 * GEOM_MASS,
+                   pos=np.array([0.0, 0.0, z]), quat=q_fd)
+        b.add_geom(name, sc.POLYHEDRON, [0.0], verts=OCTA * 0.5)
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5)
+    b.set_contact_params("ground", "o1", cp)
+    b.set_contact_params("o1", "o2", cp)
+    return b
+
+
+def make_platforms():
+    """Bodies of GEOM_MASS: an octahedron (0.4 m to its tips) tip down on a fixed BOX platform
+    (tests/test_gjk.py:68; mu=0: at rest its centre is 0.65 m up; kind 9,
+    POLYHEDRON-BOX) and, 10 m away, a polyhedral cube on a fixed polyhedral
+    slab (tests/test_convex_manifold.py:44-73; mu=0.5; kind 9,
+    POLYHEDRON-POLYHEDRON); no ground, their mutual pairs disabled. K = 16,
+    n = 128."""
+    from moby_tpu_torch.core import scene as sc
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("octa", mass=GEOM_MASS, inertia=np.eye(3) * 0.05 * GEOM_MASS,
+               pos=np.array([0.0, 0.0, OCTA_REST_Z]))
+    b.add_geom("octa", sc.POLYHEDRON, [0.0], verts=OCTA * 0.4)
+    b.add_body("plat", enabled=False)
+    b.add_geom("plat", sc.BOX, [2.0, 2.0, 0.25])
+    b.add_body("cube", mass=GEOM_MASS,
+               inertia=sc.box_inertia(GEOM_MASS, 0.5, 0.5, 0.5),
+               pos=np.array([10.0, 0.0, 1.5]))
+    b.add_geom("cube", sc.POLYHEDRON, [0.0], verts=cube_verts(0.5))
+    b.add_body("slab", enabled=False, pos=np.array([10.0, 0.0, 0.0]))
+    b.add_geom("slab", sc.POLYHEDRON, [0.0],
+               verts=cube_verts(1.0) * np.array([4.0, 4.0, 1.0]))
+    b.set_contact_params(
+        "octa", "plat", sc.ContactParams(epsilon=0.0, mu_coulomb=0.0, nk=4))
+    b.set_contact_params("cube", "slab", sc.ContactParams(epsilon=0.0, mu_coulomb=0.5))
+    for x in ("octa", "plat"):
+        for y in ("cube", "slab"):
+            b.disabled_pairs.add(tuple(sorted((x, y))))
+    return b
+
+
+# the convex polyhedra of the slice in two scenes: one impact LCP covers a
+# scene, and the three kind-9 pairs in one would make it n = 8·K >= 192,
+# past what `ppm_lcp` takes (n <= 160 in float32, `hopper_lcp.fits`)
+GEOMETRY_SCENES = {"curved": make_curved, "octastack": make_octastack,
+                   "platforms": make_platforms}
+
+
+def geometry_config(name, device, B, seed, dtype=None):
+    """(scene, state of B scenarios) of a geometry configuration: every
+    enabled body lifted by numpy-made jitter in [0, GEOM_LIFT) from `seed`
+    (the second octahedron of the stack by its own and the first's) and
+    moving down at GEOM_DROP."""
+    scene, st = GEOMETRY_SCENES[name]().compile(device=device, dtype=dtype)
+    nb = st.pos.shape[1]
+    en = scene.host["enabled"][None, :]
+    dz = np.random.default_rng(seed).uniform(0.0, GEOM_LIFT, size=(B, nb)) * en
+    if name == "octastack":
+        dz[:, 2] += dz[:, 1]           # o2 rests on o1
+    st = st.expand(B)
+    pos, vel = st.pos.clone(), st.vel.clone()
+    pos[:, :, 2] += torch.tensor(dz, dtype=pos.dtype, device=pos.device)
+    vel[:, :, 2] -= torch.tensor(GEOM_DROP * en, dtype=vel.dtype, device=vel.device)
+    return scene, st.replace(pos=pos, vel=vel)
+
+
+def run_geometry(name, seed):
+    """GEOM_BATCH scenarios of one geometry configuration through
+    `stepper.step` on the card, float32: scenario-steps/s, the device's
+    busy share and launches of a step, the launches of one `narrow_phase`
+    call, `ppm_lcp`'s launches and calls with work."""
+    from moby_tpu_torch.geometry import narrowphase as nph
+    from moby_tpu_torch.sim import kinematics, stepper
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    B, n_steps = GEOM_BATCH, GEOM_STEPS[name]
+    scene, st = geometry_config(name, DEVICE, B, seed, torch.float32)
+    kinds = sorted({k for k, _ in scene.kind_groups})
+    st, elapsed, solved, recorded, entered, _, launches = recorded_run(
+        scene, st, n_steps, GEOM_DT)
+    for f in ("pos", "quat", "vel", "omega"):
+        assert torch.isfinite(getattr(st, f)).all(), f"geometry {name}: {f} not finite"
+    assert solved > 0, f"geometry {name}: no impact was ever solved"
+    z = st.pos[..., 2].double().cpu().numpy()
+    rest = {"curved": [0.0, 0.5, 0.6, 0.25],
+            "octastack": [0.0, 0.5 / np.sqrt(3.0), 1.5 / np.sqrt(3.0)],
+            "platforms": [OCTA_REST_Z, 0.0, 1.5, 0.0]}[name]
+    low = (z - np.array(rest)).min(axis=0)
+    detail = (f"lowest centre of each body against its rest height "
+              f"{low.round(6).tolist()} m")
+    assert low.min() > -5e-3, f"geometry {name}: a body sank ({detail})"
+    if name != "curved":
+        assert scene.n_lcp <= 160 and hopper_lcp.fits(scene.n_lcp, torch.float32)
+    calls_with_work, with_work = kernel_work(recorded)
+    rate = B * n_steps / elapsed
+    log(f"[geometry] {name}: kinds {kinds}, B={B} steps={n_steps} dt={GEOM_DT} "
+        f"float32, K={scene.n_contacts} n_lcp={scene.n_lcp}: {elapsed:.2f} s, "
+        f"{rate:.1f} scenario-steps/s; scenario-steps with an impact solve "
+        f"{solved} of {B * n_steps}; {detail}")
+    log(f"[geometry] {name}: ppm_lcp launches={launches} ({launches / n_steps:.2f} a "
+        f"step), calls with work={calls_with_work}, problems with work by LCP={with_work}")
+    k, us = launches_of(lambda: stepper.step(scene, st, GEOM_DT, device=DEVICE))
+    pt = kinematics.compute(scene, st)
+    knp, usnp = launches_of(lambda: nph.narrow_phase(scene, pt.pos, pt.quat, 1e-3))
+    log(f"[geometry] {name}: device busy {us / 1e3:.2f} ms of a "
+        f"{elapsed / n_steps * 1e3:.2f} ms step (idle share "
+        f"{1.0 - us / 1e6 / (elapsed / n_steps):.3f}), {k} kernel launches a step; "
+        f"one narrow_phase call {knp} launches, {usnp / 1e3:.3f} ms of device time")
+    return {"launches": launches, "recorded": recorded, "entered": entered,
+            "rate": rate, "calls_with_work": calls_with_work, "steps": n_steps,
+            "problems_with_work": with_work, "nqp_launches": None,
+            "n_vars": scene.n_vars, "launches_a_step": k,
+            "narrow_phase_launches": knp,
+            "idle_share": 1.0 - us / 1e6 / (elapsed / n_steps)}
+
+
+def phase_geometry(seed):
+    """The curved solids on a plane and the convex polyhedra at full width."""
+    return {name: run_geometry(name, seed) for name in GEOMETRY_SCENES}
+
+
+def geometry_parity_run(name, device, seed, dtype=None):
+    """Positions (steps, B, nb, 3) of a geometry configuration at
+    GEOM_PARITY_BATCH on `device` (float32 on the card, float64 on the
+    CPU unless `dtype` says otherwise)."""
+    from moby_tpu_torch.sim import stepper
+
+    scene, st = geometry_config(name, device, GEOM_PARITY_BATCH, seed, dtype)
+    pos = []
+    threads = torch.get_num_threads()
+    if device == "cpu":
+        torch.set_num_threads(1)       # B=4: more threads only synchronise
+    try:
+        for _ in range(GEOM_PARITY_STEPS[name]):
+            st = stepper.step(scene, st, GEOM_DT, device=device)
+            pos.append(st.pos)
+    finally:
+        torch.set_num_threads(threads)
+    return torch.stack(pos).double().cpu()
+
+
+_OCTA_OBJ = """# an octahedron, outward faces
+v 0.3 0 0
+v -0.3 0 0
+v 0 0.3 0
+v 0 -0.3 0
+v 0 0 0.3
+v 0 0 -0.3
+f 1 3 5
+f 3 2 5
+f 2 4 5
+f 4 1 5
+f 3 1 6
+f 2 3 6
+f 4 2 6
+f 1 4 6
+"""
+
+_SHAPES_XML = """<XML>
+<DRIVER step-size="0.001" />
+<MOBY>
+  <Cylinder id="cyl" radius="0.5" height="1" density="2.0" />
+  <Cone id="cone" radius="0.6" height="1.2" mass="1.5" />
+  <Torus id="tor" major-radius="1.0" minor-radius="0.25" density="0.5" />
+  <Polyhedron id="oct" filename="octa.obj" mass="0.8" />
+  <Plane id="p" />
+  <GravityForce id="g" accel="0 0 -9.81" />
+  <RigidBody id="can" position="0 0 0.5002" rpy="0 0 1.5707963267949">
+    <InertiaFromPrimitive primitive-id="cyl" /><CollisionGeometry primitive-id="cyl" />
+  </RigidBody>
+  <RigidBody id="cone" position="3 0 0.6002" rpy="1.5707963267949 0 0">
+    <InertiaFromPrimitive primitive-id="cone" /><CollisionGeometry primitive-id="cone" />
+  </RigidBody>
+  <RigidBody id="torus" position="-3.5 0 0.2502">
+    <InertiaFromPrimitive primitive-id="tor" /><CollisionGeometry primitive-id="tor" />
+  </RigidBody>
+  <RigidBody id="poly" position="0 4 0.3002" rpy="0 0 0.3">
+    <InertiaFromPrimitive primitive-id="oct" /><CollisionGeometry primitive-id="oct" />
+  </RigidBody>
+  <RigidBody id="ground" enabled="false"><CollisionGeometry primitive-id="p" /></RigidBody>
+  <TimeSteppingSimulator>
+    <DynamicBody dynamic-body-id="can" /><DynamicBody dynamic-body-id="cone" />
+    <DynamicBody dynamic-body-id="torus" /><DynamicBody dynamic-body-id="poly" />
+    <DynamicBody dynamic-body-id="ground" />
+    <RecurrentForce recurrent-force-id="g" />
+    <ContactParameters object1-id="ground" object2-id="can" mu-coulomb="0.5" epsilon="0" />
+    <ContactParameters object1-id="ground" object2-id="poly" mu-coulomb="0.5" epsilon="0" />
+{disabled}
+  </TimeSteppingSimulator>
+</MOBY></XML>"""
+
+
+def write_shapes_scene(directory):
+    """A Moby XML scene of this slice's primitive tags, its <Polyhedron>'s
+    OBJ beside it: a cylinder on its side, a cone base down, a torus flat
+    and an octahedron tip down, each 0.2 mm above one plane; the pairs
+    between them (support pairs) disabled. Returns the scene's path."""
+    names = ("can", "cone", "torus", "poly")
+    disabled = "\n".join(f'    <DisabledPair object1-id="{a}" object2-id="{b}" />'
+                         for i, a in enumerate(names) for b in names[i + 1:])
+    with open(os.path.join(directory, "octa.obj"), "w") as f:
+        f.write(_OCTA_OBJ)
+    path = os.path.join(directory, "shapes.xml")
+    with open(path, "w") as f:
+        f.write(_SHAPES_XML.format(disabled=disabled))
+    return path
+
+
+def phase_geometry_parity(seed):
+    """Card float32 against the port on the CPU in float64 for both geometry
+    configurations at GEOM_PARITY_BATCH: the largest position drift within
+    GEOM_DRIFT_LIMIT; on the card the spinning cylinder's axis stays above
+    r - 1e-3 and the octahedron comes to rest on the platform within 1e-3
+    of 0.65 m. Then the regress CLI on an XML scene of the four primitive
+    tags written into a temporary directory, GEOM_REGRESS_STEPS steps on the
+    card and with --cpu, compared within REGRESS_TOL."""
+    import tempfile
+
+    from moby_tpu_torch.cli import compare, regress
+
+    drifts = {}
+    for name in GEOMETRY_SCENES:
+        t0 = time.time()
+        pc = geometry_parity_run(name, DEVICE, seed + 1)
+        t1 = time.time()
+        pr = geometry_parity_run(name, "cpu", seed + 1)
+        drift = float((pc - pr).abs().max())
+        drifts[name] = drift
+        assert torch.isfinite(pc).all(), f"geometryparity {name}: not finite"
+        held = []
+        if name == "octastack":
+            detail = f"octahedra at {pc[-1, :, 1:, 2].mean(dim=0).tolist()} m"
+        elif name == "curved":
+            zc = float(pc[:, :, 1, 2].min())
+            travel = float((pc[-1, :, 1, 1] - pc[0, :, 1, 1]).abs().max())
+            detail = (f"cylinder axis lowest {zc:.6f} m (limit {CYL_MIN_Z}), rolled "
+                      f"{travel * 1e3:.3f} mm along y")
+            held.append((zc > CYL_MIN_Z, f"the cylinder sank to {zc:.6f}"))
+        else:
+            # the test holds the height in float64; float32 stabilization
+            # parks a resting body up to 2·NEAR_ZERO above its support and
+            # lets it fall back (ROADMAP §3), which the card may read at the
+            # last step
+            off_cpu = float((pr[-1, :, 0, 2] - OCTA_REST_Z).abs().max())
+            off = float((pc[-1, :, 0, 2] - OCTA_REST_Z).abs().max())
+            park = 2.0 * NEAR_ZERO_F32
+            detail = (f"octahedron on the platform {off_cpu:.2e} off {OCTA_REST_Z} m in "
+                      f"CPU float64 (limit {OCTA_REST_TOL}), {off:.2e} on the card "
+                      f"(limit {OCTA_REST_TOL} + 2·NEAR_ZERO = {OCTA_REST_TOL + park:.2e})")
+            held.append((off_cpu < OCTA_REST_TOL, f"octahedron {off_cpu:.3e} off its rest"))
+            held.append((off < OCTA_REST_TOL + park, f"octahedron {off:.3e} off on the card"))
+        log(f"[geometryparity] {name}: B={GEOM_PARITY_BATCH} steps="
+            f"{GEOM_PARITY_STEPS[name]}: max position drift {drift:.3e} (limit "
+            f"{GEOM_DRIFT_LIMIT[name]:.1e}); {detail}; card {t1 - t0:.1f} s, CPU "
+            f"{time.time() - t1:.1f} s")
+        for ok, what in held:
+            assert ok, f"geometryparity {name}: {what}"
+        assert drift < GEOM_DRIFT_LIMIT[name], f"geometryparity {name}: drift {drift:.3e}"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_shapes_scene(tmp)
+        dumps, secs = {}, {}
+        for mode in ("card", "cpu"):
+            dumps[mode] = os.path.join(tmp, f"shapes.{mode}.dat")
+            argv = [f"-s={GEOM_DT}", f"-mi={GEOM_REGRESS_STEPS}", path, dumps[mode]]
+            t0 = time.time()
+            assert regress.main(argv + (["--cpu"] if mode == "cpu" else [])) == 0
+            secs[mode] = time.time() - t0
+        err, where, n = compare.compare(dumps["cpu"], dumps["card"])
+        log(f"[geometryparity] regress of the shapes scene (Cylinder, Cone, Torus, "
+            f"Polyhedron from an OBJ): {n} lines, card float32 against --cpu float64 "
+            f"L-inf {err:.3e} (worst at line, column {where}; limit {REGRESS_TOL:.0e}); "
+            f"card {secs['card']:.1f} s, CPU {secs['cpu']:.1f} s")
+        assert n == GEOM_REGRESS_STEPS, f"geometryparity regress: {n} lines"
+        assert compare.main([dumps["cpu"], dumps["card"], str(REGRESS_TOL)]) == 0, (
+            f"geometryparity regress: {err:.3e}")
     return drifts
 
 
@@ -2833,10 +3291,21 @@ def main():
     if models is not None and "kernels" in phases:
         max_err = max(max_err, phase_kernels_models(models))
         lap("kernels on the models' LCPs")
+    geometry = phase_geometry(args.seed) if "geometry" in phases else None
+    lap("geometry")
+    if "geometryparity" in phases:
+        phase_geometry_parity(args.seed)
+        lap("geometryparity")
+    if geometry is not None and "kernels" in phases:
+        max_err = max(max_err, phase_kernels_models(
+            geometry, {k: r["n_vars"] for k, r in geometry.items()}))
+        lap("kernels on the geometry's LCPs")
     full_run = set(phases) == set(PHASES)
     entries = []
     table_path = measure_art_kernel(art) if art is not None else None
     models_path = measure_models_kernel(models) if models is not None else None
+    geometry_path = (measure_models_kernel(geometry, "the geometry's")
+                     if geometry is not None else None)
     if recorded:
         entry = measure_kernel(recorded, launches, max_err)
         # the step's, the table's and each model's runs, each counted from 0
@@ -2848,11 +3317,16 @@ def main():
             entry["launches_by_path"].update(
                 {f"models:{k}": r["launches"] for k, r in models.items()})
             entry["models_path"] = models_path
+        if geometry_path is not None:
+            entry["launches_by_path"].update(
+                {f"geometry:{k}": r["launches"] for k, r in geometry.items()})
+            entry["geometry_path"] = geometry_path
         entry["launches"] = sum(entry["launches_by_path"].values())
         entries.append(entry)
     else:
         for label, path in (("the table path", table_path),
-                            ("the models' paths", models_path)):
+                            ("the models' paths", models_path),
+                            ("the geometry's paths", geometry_path)):
             if path is not None:
                 log(f"[timing] ppm_lcp on {label}: {json.dumps(path)}")
     block_path = measure_block_kernel(block) if block is not None else None
@@ -2873,6 +3347,8 @@ def main():
         assert art["launches"] > 0, "the table path never launched ppm_lcp"
         assert all(r["launches"] > 0 for r in models.values()), (
             "a path of the other contact models never launched ppm_lcp")
+        assert all(r["launches"] > 0 for r in geometry.values()), (
+            "a geometry path never launched ppm_lcp")
         assert block["launches"] > 0, "the block-push path never launched bpp_lcp"
     lap("timing")
     if entries:
@@ -2883,7 +3359,9 @@ def main():
         f"{None if block is None else {k: round(m['solves_per_s'], 2) for k, m in block['modes'].items()}}; "
         f"table scenario-steps/s at B={ART_BATCH}: {None if art is None else art['rate']}; "
         f"models' scenario-steps/s at B={MODELS_BATCH}: "
-        f"{None if models is None else {k: round(r['rate'], 1) for k, r in models.items()}}")
+        f"{None if models is None else {k: round(r['rate'], 1) for k, r in models.items()}}; "
+        f"geometry's scenario-steps/s at B={GEOM_BATCH}: "
+        f"{None if geometry is None else {k: round(r['rate'], 1) for k, r in geometry.items()}}")
     log(card)
     if not full_run:
         log(f"partial run (phases: {phases}): no result line")

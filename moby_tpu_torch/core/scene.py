@@ -19,14 +19,17 @@ fixed-shape tensors shared by every scenario of a batch:
 
 :class:`State` carries the batch: every field has a leading ``B``.
 
-The port covers free bodies and articulated bodies with SPHERE, PLANE and
-BOX geometry, joint limits, bilateral (gear, point and planar) constraints
-and compliant bodies. Pair pooling, heightmaps, meshes, the other primitives
-and plugin kernels are accepted by `SceneBuilder`'s methods and refused by
-``compile()`` with a ``NotImplementedError`` that names the feature. The
-mesh, heightmap and convex-hull tables of the JAX ``Scene`` (``geom_faces``,
-``hm_heights``, ``geom_hull_normals`` ...) have no consumer yet and are not
-carried.
+The port covers free bodies and articulated bodies with SPHERE, PLANE, BOX,
+CYLINDER, CONE, TORUS and POLYHEDRON (convex vertex cloud) geometry in the
+narrow-phase kinds 0-6, 9 and 10, joint limits, bilateral (gear, point and
+planar) constraints and compliant bodies. Pair pooling, heightmaps, triangle
+meshes, the support-function pairs (kinds >= 100, e.g. cylinder-sphere) and
+plugin kernels are accepted by `SceneBuilder`'s methods and refused by
+``compile()`` with a ``NotImplementedError`` that names the pair or the
+feature. The convex hulls of BOX and POLYHEDRON geometry are computed at
+compile by the repo's native quickhull (`geometry.hull`). The heightmap grid
+tables of the JAX ``Scene`` (``hm_heights``, ``hm_size``) have no consumer
+yet and are not carried.
 
 Index tables are int64 (PyTorch's indexing type) where the JAX package uses
 int32; values are equal.
@@ -62,7 +65,7 @@ _GEOM_NAMES = {
     CONE: "CONE", TORUS: "TORUS", HEIGHTMAP: "HEIGHTMAP",
     POLYHEDRON: "POLYHEDRON", NONE: "NONE", TRIMESH: "TRIMESH",
 }
-_PORTED_GEOMS = frozenset({SPHERE, PLANE, BOX})
+_PORTED_GEOMS = frozenset({SPHERE, PLANE, BOX, CYLINDER, CONE, TORUS, POLYHEDRON})
 
 # narrow-phase kind codes (mirrors CCD::find_contacts dispatch,
 # include/Moby/CCD.inl:3-81); same values as the JAX package
@@ -70,9 +73,56 @@ K_SPHERE_SPHERE = 0   # A=sphere, B=sphere, 1 slot
 K_SPHERE_PLANE = 1    # A=sphere, B=plane, 1 slot
 K_BOX_SPHERE = 2      # A=box, B=sphere, 1 slot
 K_PLANE_GENERIC = 3   # A=plane, B=vertex-carrying solid, vmax slots
+K_CYLINDER_PLANE = 4  # A=cylinder, B=plane, 4 slots
+K_TORUS_PLANE = 5     # A=torus, B=plane, 4 slots
 K_BOX_BOX = 6         # A=box, B=box: vertex-vs-box both ways, 2*vmax slots
+K_SPHERE_HEIGHTMAP = 7   # A=sphere, B=heightmap (not ported)
+K_VERTS_HEIGHTMAP = 8    # A=vertex solid, B=heightmap (not ported)
+K_CONVEX_CONVEX = 9      # A,B convex clouds: GJK + MTV manifold, 8 slots
+K_CONE_PLANE = 10        # A=cone, B=plane, 4 slots
+K_SPHERE_TRIMESH = 11    # A=sphere, B=triangle mesh (not ported)
+K_TRIMESH_CONVEX = 12    # A=trimesh, B=box (not ported)
+K_TRIMESH_TRIMESH = 13   # A,B trimeshes (not ported)
+# the support-function kinds of the JAX package (not ported): convex pair
+# K_SUPPORT_BASE + ta*16 + tb, curved convex vs heightmap K_SUPPORT_HM_BASE +
+# ta, triangle mesh vs curved convex K_SUPPORT_TM_BASE + tb
+K_SUPPORT_BASE = 100
+K_SUPPORT_HM_BASE = 300
+K_SUPPORT_TM_BASE = 400
+SUPPORT_CONVEX_TYPES = frozenset({SPHERE, BOX, CYLINDER, CONE, TORUS, POLYHEDRON})
+CURVED_CONVEX_TYPES = frozenset({CYLINDER, CONE, TORUS})
 
 _SKIP = "skip"
+
+# the kinds the port's narrow phase runs
+_PORTED_KINDS = frozenset({
+    K_SPHERE_SPHERE, K_SPHERE_PLANE, K_BOX_SPHERE, K_PLANE_GENERIC,
+    K_CYLINDER_PLANE, K_TORUS_PLANE, K_BOX_BOX, K_CONVEX_CONVEX, K_CONE_PLANE,
+})
+_KIND_NAMES = {
+    K_SPHERE_SPHERE: "sphere-sphere", K_SPHERE_PLANE: "sphere-plane",
+    K_BOX_SPHERE: "box-sphere", K_PLANE_GENERIC: "plane-vertex solid",
+    K_CYLINDER_PLANE: "cylinder-plane", K_TORUS_PLANE: "torus-plane",
+    K_BOX_BOX: "box-box", K_SPHERE_HEIGHTMAP: "sphere-heightmap",
+    K_VERTS_HEIGHTMAP: "vertex solid-heightmap",
+    K_CONVEX_CONVEX: "convex-convex", K_CONE_PLANE: "cone-plane",
+    K_SPHERE_TRIMESH: "sphere-trimesh", K_TRIMESH_CONVEX: "trimesh-box",
+    K_TRIMESH_TRIMESH: "trimesh-trimesh",
+}
+
+
+def kind_name(kind: int) -> str:
+    """What a narrow-phase kind code stands for, for messages."""
+    kind = int(kind)
+    if kind >= K_SUPPORT_TM_BASE:
+        return f"trimesh-{_GEOM_NAMES.get(kind - K_SUPPORT_TM_BASE, '?')} support pair"
+    if kind >= K_SUPPORT_HM_BASE:
+        return f"{_GEOM_NAMES.get(kind - K_SUPPORT_HM_BASE, '?')}-heightmap support pair"
+    if kind >= K_SUPPORT_BASE:
+        ta, tb = divmod(kind - K_SUPPORT_BASE, 16)
+        return (f"{_GEOM_NAMES.get(ta, '?')}-{_GEOM_NAMES.get(tb, '?')} "
+                "support pair")
+    return _KIND_NAMES.get(kind, "unknown")
 
 # vertex-driven contact-slot cap: pair kinds that emit one slot per vertex cap
 # at the VSLOT_CAP deepest vertices (boxes have 8, below the cap)
@@ -84,8 +134,12 @@ def _kind_nslots(kind: int, vmax: int) -> int:
         return 1
     if kind == K_PLANE_GENERIC:
         return min(vmax, VSLOT_CAP)
+    if kind in (K_CYLINDER_PLANE, K_TORUS_PLANE, K_CONE_PLANE):
+        return 4
     if kind == K_BOX_BOX:
         return 2 * min(vmax, VSLOT_CAP)
+    if kind == K_CONVEX_CONVEX:
+        return 8  # 4+4 bidirectional vertex-vs-supporting-plane manifold
     raise ValueError(f"unknown kind {kind}")
 
 
@@ -148,6 +202,14 @@ _SCENE_ARRAYS = (
     "gravity", "contact_dist_thresh", "min_step_size",
     "dissipation_lambda", "drag_lin", "drag_ang",
 )
+# the convex hulls of the vertex-cloud geometries (BOX, POLYHEDRON): hull
+# triangles of a POLYHEDRON (indices into its cloud) and the candidate
+# directions of the exact convex-convex penetration (face normals and edge
+# directions, local frame, deduped up to sign)
+_HULL_ARRAYS = (
+    "geom_faces", "geom_nfaces", "geom_hull_normals", "geom_nhn",
+    "geom_hull_edges", "geom_nhe",
+)
 _SCENE_STATICS = (
     "nb", "ng", "n_pose_slots", "ngc", "nq_art", "nv_art", "n_pairs",
     "n_contacts", "n_friction_rows", "n_limits", "vmax",
@@ -206,6 +268,13 @@ class Scene(_TensorRecord):
     # ---- vertex table (plane_generic contacts / CA bounds)
     geom_verts: torch.Tensor      # (ng, VMAX, 3)
     geom_nverts: torch.Tensor     # (ng,)
+    # ---- convex hulls (_HULL_ARRAYS)
+    geom_faces: torch.Tensor          # (ng, FMAX, 3) hull triangles
+    geom_nfaces: torch.Tensor         # (ng,)
+    geom_hull_normals: torch.Tensor   # (ng, FN, 3) face normals
+    geom_nhn: torch.Tensor            # (ng,)
+    geom_hull_edges: torch.Tensor     # (ng, ED, 3) edge directions
+    geom_nhe: torch.Tensor            # (ng,)
     # ---- forces / solver config
     gravity: torch.Tensor
     contact_dist_thresh: torch.Tensor
@@ -357,6 +426,48 @@ def box_vertices(hx, hy, hz) -> np.ndarray:
     )
 
 
+def _hull_candidate_dirs(verts):
+    """Face unit normals and edge unit directions (each deduped up to sign)
+    of conv(verts), from the native quickhull. Returns
+    (normals (FN,3), edge_dirs (ED,3)), or (None, None) for a degenerate
+    (flat or collinear) vertex cloud."""
+    from ..geometry import hull
+
+    try:
+        hv, faces = hull.convex_hull(np.asarray(verts, np.float64))
+    except ValueError:
+        return None, None
+    if len(faces) == 0:
+        return None, None
+
+    def dedup_dirs(d):
+        d = d / np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-300)
+        # canonical hemisphere (sign-insensitive consumers evaluate both)
+        flip = (d[:, 0] < -1e-12) | (
+            (np.abs(d[:, 0]) <= 1e-12) & (d[:, 1] < -1e-12)
+        ) | (
+            (np.abs(d[:, 0]) <= 1e-12) & (np.abs(d[:, 1]) <= 1e-12)
+            & (d[:, 2] < 0)
+        )
+        d = np.where(flip[:, None], -d, d)
+        return np.unique(np.round(d, 9), axis=0)
+
+    a, b, c = hv[faces[:, 0]], hv[faces[:, 1]], hv[faces[:, 2]]
+    fn = np.cross(b - a, c - a)
+    ln = np.linalg.norm(fn, axis=1)
+    fn = fn[ln > 1e-12]
+    normals = dedup_dirs(fn)
+
+    edges = np.concatenate(
+        [faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]
+    )
+    ev = hv[edges[:, 1]] - hv[edges[:, 0]]
+    le = np.linalg.norm(ev, axis=1)
+    ev = ev[le > 1e-12]
+    edge_dirs = dedup_dirs(ev)
+    return normals, edge_dirs
+
+
 def sphere_inertia(mass, r):
     return np.eye(3) * (2.0 / 5.0 * mass * r * r)
 
@@ -370,6 +481,11 @@ def box_inertia(mass, hx, hy, hz):
             mass / 12.0 * (lx * lx + ly * ly),
         ]
     )
+
+
+def cylinder_inertia(mass, r, h):
+    ix = mass * (3 * r * r + h * h) / 12.0
+    return np.diag([ix, 0.5 * mass * r * r, ix])
 
 
 def _np_qmul(q1, q2):
@@ -394,11 +510,10 @@ def _check_ported(statics: dict, kind_groups: dict):
             raise NotImplementedError("plugin contact kernels are not ported yet")
         if grp.get("pooled"):
             raise NotImplementedError("pair pooling is not ported yet")
-        if kind not in (K_SPHERE_SPHERE, K_SPHERE_PLANE, K_BOX_SPHERE,
-                        K_PLANE_GENERIC, K_BOX_BOX):
+        if kind not in _PORTED_KINDS:
             raise NotImplementedError(
-                f"narrow-phase kind {kind} is not ported yet (ported: "
-                "sphere-sphere, sphere-plane, box-sphere, plane-box, box-box)")
+                f"narrow-phase kind {kind} ({kind_name(kind)} pairs) is not "
+                "ported yet (ported: kinds 0-6, 9 and 10)")
 
 
 def scene_from_arrays(fields: dict, device, dtype=None) -> Scene:
@@ -407,8 +522,8 @@ def scene_from_arrays(fields: dict, device, dtype=None) -> Scene:
     converted with ``np.asarray``. The articulated entries ``arts`` may be
     either package's: each model is rebuilt from its plain fields
     (`dynamics.model.copy_model`). Entries the port has no consumer for
-    (mesh, heightmap and hull tables) are ignored; features it does not run
-    raise ``NotImplementedError``."""
+    (the heightmap grids) are ignored; features it does not run raise
+    ``NotImplementedError``."""
     dev = cfg.resolve_device(device)
     fdtype = cfg.torch_dtype(dtype) if dtype is not None else cfg.default_dtype(dev)
     statics = {k: fields[k] for k in _SCENE_STATICS if k in fields}
@@ -430,7 +545,7 @@ def scene_from_arrays(fields: dict, device, dtype=None) -> Scene:
     _check_ported(statics, kind_groups)
     np_dt = cfg.numpy_dtype(fdtype)
     host = {}
-    for k in _SCENE_ARRAYS:
+    for k in _SCENE_ARRAYS + _HULL_ARRAYS:
         a = np.asarray(fields[k])
         if np.issubdtype(a.dtype, np.floating):
             a = a.astype(np_dt)
@@ -631,6 +746,8 @@ class SceneBuilder:
         return tuple(out)
 
     def _pair_kind(self, ta, tb):
+        """(kind, flip) of a geometry-type pair: the JAX package's table,
+        kinds the port does not run included (compile refuses those)."""
         if ta == SPHERE and tb == SPHERE:
             return K_SPHERE_SPHERE, False
         if ta == SPHERE and tb == PLANE:
@@ -641,14 +758,74 @@ class SceneBuilder:
             return K_BOX_SPHERE, True
         if ta == BOX and tb == SPHERE:
             return K_BOX_SPHERE, False
-        if ta == BOX and tb == PLANE:
+        if ta in (BOX, POLYHEDRON) and tb == PLANE:
             return K_PLANE_GENERIC, True
-        if ta == PLANE and tb == BOX:
+        if ta == PLANE and tb in (BOX, POLYHEDRON):
             return K_PLANE_GENERIC, False
+        if ta == CYLINDER and tb == PLANE:
+            return K_CYLINDER_PLANE, False
+        if ta == PLANE and tb == CYLINDER:
+            return K_CYLINDER_PLANE, True
+        if ta == CONE and tb == PLANE:
+            return K_CONE_PLANE, False
+        if ta == PLANE and tb == CONE:
+            return K_CONE_PLANE, True
+        if ta == TORUS and tb == PLANE:
+            return K_TORUS_PLANE, False
+        if ta == PLANE and tb == TORUS:
+            return K_TORUS_PLANE, True
         if ta == BOX and tb == BOX:
             return K_BOX_BOX, False
-        if ta == PLANE and tb == PLANE:
-            # two fixed environment fields: nothing to do
+        if ta == SPHERE and tb == HEIGHTMAP:
+            return K_SPHERE_HEIGHTMAP, False
+        if ta == HEIGHTMAP and tb == SPHERE:
+            return K_SPHERE_HEIGHTMAP, True
+        if ta in (BOX, POLYHEDRON) and tb == HEIGHTMAP:
+            return K_VERTS_HEIGHTMAP, False
+        if ta == HEIGHTMAP and tb in (BOX, POLYHEDRON):
+            return K_VERTS_HEIGHTMAP, True
+        if ta in CURVED_CONVEX_TYPES and tb == HEIGHTMAP:
+            return K_SUPPORT_HM_BASE + ta, False
+        if ta == HEIGHTMAP and tb in CURVED_CONVEX_TYPES:
+            return K_SUPPORT_HM_BASE + tb, True
+        if ta == POLYHEDRON and tb in (POLYHEDRON, BOX):
+            return K_CONVEX_CONVEX, False
+        if ta == BOX and tb == POLYHEDRON:
+            return K_CONVEX_CONVEX, False
+        if ta == TRIMESH and tb == PLANE:
+            return K_PLANE_GENERIC, True
+        if ta == PLANE and tb == TRIMESH:
+            return K_PLANE_GENERIC, False
+        if ta == TRIMESH and tb == HEIGHTMAP:
+            return K_VERTS_HEIGHTMAP, False
+        if ta == HEIGHTMAP and tb == TRIMESH:
+            return K_VERTS_HEIGHTMAP, True
+        if ta == SPHERE and tb == TRIMESH:
+            return K_SPHERE_TRIMESH, False
+        if ta == TRIMESH and tb == SPHERE:
+            return K_SPHERE_TRIMESH, True
+        if ta == TRIMESH and tb == BOX:
+            return K_TRIMESH_CONVEX, False
+        if ta == BOX and tb == TRIMESH:
+            return K_TRIMESH_CONVEX, True
+        if ta == TRIMESH and tb == TRIMESH:
+            return K_TRIMESH_TRIMESH, False
+        if ta == TRIMESH and tb == POLYHEDRON:
+            return K_TRIMESH_TRIMESH, False
+        if ta == POLYHEDRON and tb == TRIMESH:
+            return K_TRIMESH_TRIMESH, True
+        if ta == TRIMESH and tb in CURVED_CONVEX_TYPES:
+            return K_SUPPORT_TM_BASE + tb, False
+        if ta in CURVED_CONVEX_TYPES and tb == TRIMESH:
+            return K_SUPPORT_TM_BASE + ta, True
+        if ta in SUPPORT_CONVEX_TYPES and tb in SUPPORT_CONVEX_TYPES:
+            if ta <= tb:
+                return K_SUPPORT_BASE + ta * 16 + tb, False
+            return K_SUPPORT_BASE + tb * 16 + ta, True
+        # two fixed environment fields / plugin ghost anchors: nothing to do
+        if ta == NONE or tb == NONE:
+            return _SKIP, False
+        if {ta, tb} <= {PLANE, HEIGHTMAP}:
             return _SKIP, False
         return None, False
 
@@ -666,11 +843,6 @@ class SceneBuilder:
         if self._unported:
             raise NotImplementedError(
                 f"{self._unported[0]} are not ported yet")
-        for g in self.geoms:
-            if g.gtype not in _PORTED_GEOMS:
-                raise NotImplementedError(
-                    f"{_GEOM_NAMES.get(g.gtype, g.gtype)} geometry (body "
-                    f"'{g.body}') is not ported yet: SPHERE, PLANE and BOX are")
 
         nb = len(self.bodies)
         # pose-slot map: free body i -> slot i, link l of ab k -> nb + offset
@@ -723,35 +895,81 @@ class SceneBuilder:
         vmax = max([1] + [len(g.verts) for g in all_geoms if g.verts is not None])
         geom_verts = np.zeros((ng, vmax, 3), dt)
         geom_nverts = np.zeros(ng, np.int64)
+        # hull triangles of a convex cloud, as indices into its own vertex
+        # order (degenerate clouds have none)
+        faces_of = {i: g.faces for i, g in enumerate(all_geoms)
+                    if g.faces is not None}
+        for i, g in enumerate(all_geoms):
+            if g.gtype == POLYHEDRON and g.faces is None and g.verts is not None:
+                from ..geometry import hull
+
+                try:
+                    hv, hf = hull.convex_hull(np.asarray(g.verts, np.float64))
+                except ValueError:
+                    continue
+                if len(hf):
+                    lookup = {tuple(np.round(v, 12)): k for k, v in
+                              enumerate(np.asarray(g.verts, np.float64))}
+                    remap = np.array([lookup[tuple(np.round(v, 12))] for v in hv],
+                                     np.int64)
+                    faces_of[i] = remap[hf]
+        fmax = max([1] + [len(f) for f in faces_of.values()])
+        geom_faces = np.zeros((ng, fmax, 3), np.int64)
+        geom_nfaces = np.zeros(ng, np.int64)
+        # candidate directions of the exact convex-convex penetration
+        hull_dirs = {}
+        for i, g in enumerate(all_geoms):
+            if g.verts is not None and g.gtype in (BOX, POLYHEDRON):
+                nrm_, ed_ = _hull_candidate_dirs(g.verts)
+                if nrm_ is not None:
+                    hull_dirs[i] = (nrm_, ed_)
+        fn_max = max([1] + [len(v[0]) for v in hull_dirs.values()])
+        ed_max = max([1] + [len(v[1]) for v in hull_dirs.values()])
+        geom_hull_normals = np.zeros((ng, fn_max, 3), dt)
+        geom_nhn = np.zeros(ng, np.int64)
+        geom_hull_edges = np.zeros((ng, ed_max, 3), dt)
+        geom_nhe = np.zeros(ng, np.int64)
+        for i, (nrm_, ed_) in hull_dirs.items():
+            geom_hull_normals[i, : len(nrm_)] = nrm_
+            geom_nhn[i] = len(nrm_)
+            geom_hull_edges[i, : len(ed_)] = ed_
+            geom_nhe[i] = len(ed_)
         for i, g in enumerate(all_geoms):
             if g.verts is not None:
                 geom_verts[i, : len(g.verts)] = g.verts
                 geom_nverts[i] = len(g.verts)
+            if i in faces_of:
+                geom_faces[i, : len(faces_of[i])] = faces_of[i]
+                geom_nfaces[i] = len(faces_of[i])
+
+        def shape_radius(g):
+            """Bounding radius about the geometry's origin; inf unbounded."""
+            t = g.gtype
+            if t == SPHERE:
+                return g.params[0]
+            if t == BOX:
+                return float(np.linalg.norm(g.params[:3]))
+            if t in (CYLINDER, CONE):
+                return float(math.hypot(g.params[0], g.params[1] / 2))
+            if t == TORUS:
+                return float(g.params[0] + g.params[1])
+            if t in (POLYHEDRON, TRIMESH) and g.verts is not None:
+                return float(np.max(np.linalg.norm(g.verts, axis=1)))
+            return np.inf  # plane, heightmap
 
         # rmax per pose slot (reference CCD.cpp:739) and the shape-only
         # bounding radius per geometry
         slot_rmax = np.zeros(ns, dt)
         geom_rmax = np.zeros(ng, dt)
         for i, g in enumerate(all_geoms):
-            if g.gtype == SPHERE:
-                geom_rmax[i] = g.params[0]
-            elif g.gtype == BOX:
-                geom_rmax[i] = float(np.linalg.norm(g.params[:3]))
-            else:
-                geom_rmax[i] = np.inf  # unbounded (plane)
-        for i, g in enumerate(all_geoms):
+            geom_rmax[i] = shape_radius(g)
             s = geom_slot[i]
-            off = np.linalg.norm(g.pos)
             if g.rmax is not None:
                 slot_rmax[s] = max(slot_rmax[s], g.rmax)
                 continue
-            if g.gtype == SPHERE:
-                r = off + g.params[0]
-            elif g.gtype == BOX:
-                r = off + float(np.linalg.norm(g.params[:3]))
-            else:
-                r = off
-            slot_rmax[s] = max(slot_rmax[s], r)
+            r = shape_radius(g)
+            off = np.linalg.norm(g.pos)
+            slot_rmax[s] = max(slot_rmax[s], off + (r if np.isfinite(r) else 0.0))
 
         # candidate pairs: geometry pairs across distinct pose slots where at
         # least one side is dynamic (enabled) — CollisionDetection.cpp:48-54
@@ -791,14 +1009,21 @@ class SceneBuilder:
                 kind, flip = self._pair_kind(ta, tb)
                 if kind is _SKIP:
                     continue
+                what = (f"{_GEOM_NAMES.get(ta, ta)} vs {_GEOM_NAMES.get(tb, tb)} "
+                        f"(bodies '{all_geoms[i].body}' / '{all_geoms[j].body}')")
                 if kind is None:
-                    raise ValueError(
-                        f"no narrow-phase kernel for geometry pair "
-                        f"{_GEOM_NAMES.get(ta, ta)} vs {_GEOM_NAMES.get(tb, tb)} "
-                        f"(bodies '{all_geoms[i].body}' / "
-                        f"'{all_geoms[j].body}')")
+                    raise ValueError(f"no narrow-phase kernel for geometry pair {what}")
+                if kind not in _PORTED_KINDS or not {ta, tb} <= _PORTED_GEOMS:
+                    raise NotImplementedError(
+                        f"narrow-phase kind {kind} ({kind_name(kind)}) of the "
+                        f"pair {what} is not ported yet")
                 ga, gb = (j, i) if flip else (i, j)
                 pair_rows.append((ga, gb, kind))
+        for g in all_geoms:
+            if g.gtype not in _PORTED_GEOMS:
+                raise NotImplementedError(
+                    f"{_GEOM_NAMES.get(g.gtype, g.gtype)} geometry (body "
+                    f"'{g.body}') is not ported yet")
 
         n_pairs = len(pair_rows)
         pair_g1 = np.array([p[0] for p in pair_rows], np.int64)
@@ -939,6 +1164,9 @@ class SceneBuilder:
             fr_cos=np.array(fr_cos, dt),
             fr_sin=np.array(fr_sin, dt),
             geom_verts=geom_verts, geom_nverts=geom_nverts,
+            geom_faces=geom_faces, geom_nfaces=geom_nfaces,
+            geom_hull_normals=geom_hull_normals, geom_nhn=geom_nhn,
+            geom_hull_edges=geom_hull_edges, geom_nhe=geom_nhe,
             gravity=self.gravity.astype(dt),
             contact_dist_thresh=np.array(self.contact_dist_thresh, dt),
             min_step_size=np.array(self.min_step_size, dt),

@@ -1,6 +1,7 @@
 """Vectorized narrow-phase collision kernels (counterpart of
-``moby_tpu/geometry/narrowphase.py``; the sphere, plane and box kinds,
-box-box included).
+``moby_tpu/geometry/narrowphase.py``): sphere-sphere, sphere-plane,
+box-sphere, plane-vertex solid, box-box, the closed-form cylinder-, cone- and
+torus-plane kinds, and convex-convex (GJK with the exact or sampled MTV).
 
 Each *kind* of pair is processed as one vectorized function over all pairs of
 that kind (static host-side grouping) and the whole batch, producing
@@ -16,11 +17,13 @@ All outputs are fixed-shape (B, K contact slots) with boolean activity masks.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import config as cfg
 from ..core import scene as sc
 from ..math import quaternion as quat
 from ..math.so3 import orthonormal_basis
@@ -81,8 +84,15 @@ def _sphere_sphere(scene, pos, quat_b, pairs):
     return dist, pa, pb, point[:, :, None, :], n[:, :, None, :], dist[:, :, None]
 
 
+def _axis(q, k):
+    """World direction of local axis k (0, 1, 2) of orientations q."""
+    e = [0.0, 0.0, 0.0]
+    e[k] = 1.0
+    return quat.rotate(q, q.new_tensor(e))
+
+
 def _plane_up(pq):
-    return quat.rotate(pq, pq.new_tensor([0.0, 1.0, 0.0]))
+    return _axis(pq, 1)
 
 
 def _sphere_plane(scene, pos, quat_b, pairs):
@@ -181,6 +191,175 @@ def _plane_generic(scene, pos, quat_b, pairs, nslots):
     return dist, pav, pbv, vw, n, sdist
 
 
+def _rim(center, radius, angles, e1, e2):
+    """Points center + radius·(cos θ e1 + sin θ e2) for each angle:
+    (B, P, 3) centres and frames, (P,) radii, (4,) angles -> (B, P, 4, 3)."""
+    r = radius[:, None, None]
+    return (center[:, :, None, :]
+            + r * torch.cos(angles)[None, :, None] * e1[:, :, None, :]
+            + r * torch.sin(angles)[None, :, None] * e2[:, :, None, :])
+
+
+def _unit(v):
+    return v / _norm(v, keepdim=True).clamp_min(1e-30)
+
+
+def _align_tol(dtype):
+    """How far from parallel or perpendicular a curved solid's axis may be
+    for its flat cases (a cylinder's cap or side, a cone's base): the JAX
+    package's 1e-8 in float64. In float32 1 - 1e-8 rounds to 1, so those
+    cases could never hold there; the port takes 1e-6 (ROADMAP §3)."""
+    return 1e-8 if dtype == torch.float64 else 1e-6
+
+
+def _cylinder_plane(scene, pos, quat_b, pairs):
+    """A = cylinder (axis = local Y), B = plane; up to 4 contacts
+    (reference CCD.inl find_contacts_cylinder_plane)."""
+    ga, gb = _pair_geoms(scene, pairs)
+    cp_, cq = geom_world_pose(scene, pos, quat_b, ga)
+    pp, pq = geom_world_pose(scene, pos, quat_b, gb)
+    R = scene.geom_params[ga, 0]
+    H = scene.geom_params[ga, 1]
+    up = _plane_up(pq)
+    axis = _axis(cq, 1)
+    n_dot = torch.sum(up * axis, dim=-1)
+    axial = torch.where(n_dot[..., None] > 0, -axis, axis)  # toward the plane
+
+    tol = _align_tol(pos.dtype)
+    perp = n_dot.abs() > 1.0 - tol    # axis ⟂ plane (an end cap rests)
+    par = n_dot.abs() < tol           # axis ∥ plane (the side rests)
+
+    # end-cap case: 4 rim points around the low cap
+    x_cap = cp_ + axial * (H / 2)[..., None]
+    t1, t2 = orthonormal_basis(up)
+    angles = torch.arange(4, dtype=pos.dtype, device=pos.device) * (math.pi / 2)
+    rim = _rim(x_cap, R, angles, t1, t2)
+    d_cap = torch.sum((x_cap - pp) * up, dim=-1)
+
+    # side case: the 2 end points of the lowest line
+    x_side = cp_ - up * R[..., None]
+    e1 = x_side + axial * (H / 2)[..., None]
+    e2 = x_side - axial * (H / 2)[..., None]
+    d_side = torch.sum((x_side - pp) * up, dim=-1)
+
+    # edge case: the single lowest rim point
+    radial = _unit(torch.linalg.cross(axial, torch.linalg.cross(axial, up)))
+    x_edge = cp_ + axial * (H / 2)[..., None] + radial * R[..., None]
+    d_edge = torch.sum((x_edge - pp) * up, dim=-1)
+
+    dist = torch.where(perp, d_cap, torch.where(par, d_side, d_edge))
+    pts = torch.where(
+        perp[..., None, None], rim,
+        torch.where(par[..., None, None], torch.stack([e1, e2, e1, e2], dim=2),
+                    torch.stack([x_edge] * 4, dim=2)))
+    nact = torch.where(perp, 4, torch.where(par, 2, 1))
+    valid = torch.arange(4, device=pos.device) < nact[..., None]
+    sdist = torch.where(valid, dist[..., None], torch.inf)
+    n = up[:, :, None, :].expand_as(pts)
+    pa = torch.where(perp[..., None], x_cap, torch.where(par[..., None], x_side, x_edge))
+    pb = pa - up * dist[..., None]
+    return dist, pa, pb, pts, n, sdist
+
+
+def _cone_plane(scene, pos, quat_b, pairs):
+    """A = cone (axis = local Y, apex at +H/2, base radius R at -H/2:
+    ConePrimitive::calc_signed_dist, src/ConePrimitive.cpp:110-150),
+    B = plane. Cases: base resting -> 4 rim points; slant resting (axis/plane
+    angle = half-angle) -> apex + lowest rim point; otherwise the single
+    lowest feature (apex or base rim)."""
+    ga, gb = _pair_geoms(scene, pairs)
+    cp_, cq = geom_world_pose(scene, pos, quat_b, ga)
+    pp, pq = geom_world_pose(scene, pos, quat_b, gb)
+    R = scene.geom_params[ga, 0]
+    H = scene.geom_params[ga, 1]
+    up = _plane_up(pq)
+    axis = _axis(cq, 1)
+    n_dot = torch.sum(up * axis, dim=-1)
+
+    apex = cp_ + axis * (H / 2)[..., None]
+    base = cp_ - axis * (H / 2)[..., None]
+
+    # lowest point of the base rim: walk R down-plane from the base center
+    radial = torch.linalg.cross(axis, torch.linalg.cross(axis, up))
+    rn = _norm(radial, keepdim=True)
+    t1, _ = orthonormal_basis(axis)
+    radial = torch.where(rn > 1e-12, radial / rn.clamp_min(1e-30), t1)
+    rim_low = base + radial * R[..., None]
+
+    d_apex = torch.sum((apex - pp) * up, dim=-1)
+    d_rim = torch.sum((rim_low - pp) * up, dim=-1)
+
+    # base-flat case: axis anti-parallel to up (the base faces the plane)
+    flat = n_dot > 1.0 - _align_tol(pos.dtype)
+    # slant case: apex and lowest rim point equally close
+    half_angle = torch.atan2(R, H)
+    tilt = torch.arccos(n_dot.abs().clamp(0.0, 1.0))
+    slant = ((math.pi / 2 - tilt) - half_angle).abs() < 1e-6
+
+    # base rim points (4) for the flat case
+    bt1, bt2 = orthonormal_basis(up)
+    angles = torch.arange(4, dtype=pos.dtype, device=pos.device) * (math.pi / 2)
+    rim4 = _rim(base, R, angles, bt1, bt2)
+    d_base = torch.sum((base - pp) * up, dim=-1)
+
+    apex_lower = d_apex < d_rim
+    d_point = torch.minimum(d_apex, d_rim)
+    x_point = torch.where(apex_lower[..., None], apex, rim_low)
+
+    dist = torch.where(flat, d_base, d_point)
+    pts = torch.where(
+        flat[..., None, None], rim4,
+        torch.where(slant[..., None, None],
+                    torch.stack([apex, rim_low, apex, rim_low], dim=2),
+                    torch.stack([x_point] * 4, dim=2)))
+    nact = torch.where(flat, 4, torch.where(slant, 2, 1))
+    valid = torch.arange(4, device=pos.device) < nact[..., None]
+    sdist = torch.where(valid, dist[..., None], torch.inf)
+    n = up[:, :, None, :].expand_as(pts)
+    pa = torch.where(flat[..., None], base, x_point)
+    pb = pa - up * dist[..., None]
+    return dist, pa, pb, pts, n, sdist
+
+
+def _torus_plane(scene, pos, quat_b, pairs):
+    """A = torus (axis = local Z), B = plane; aligned case -> 4 ring points
+    (reference CCD.inl find_contacts_torus_plane), tilted -> lowest point."""
+    ga, gb = _pair_geoms(scene, pairs)
+    tp, tq = geom_world_pose(scene, pos, quat_b, ga)
+    pp, pq = geom_world_pose(scene, pos, quat_b, gb)
+    Rmaj = scene.geom_params[ga, 0]
+    rmin = scene.geom_params[ga, 1]
+    up = _plane_up(pq)
+    k = _axis(tq, 2)
+    n_dot_k = torch.sum(up * k, dim=-1)
+    aligned = n_dot_k.abs() > 1.0 - 100 * 1.5e-8
+
+    h = torch.sum((tp - pp) * up, dim=-1)
+    d_aligned = h - rmin
+
+    # aligned: 4 points on the bottom circle of radius Rmaj
+    angles = (torch.arange(4, dtype=pos.dtype, device=pos.device) / 4
+              * (2 * math.pi) - math.pi)
+    ring = (_rim(tp, Rmaj, angles, _axis(tq, 0), _axis(tq, 1))
+            - (rmin * torch.sign(n_dot_k))[..., None, None] * k[:, :, None, :])
+
+    # tilted: the lowest point of the tube's center circle, minus rmin along
+    # up; the radial direction in the torus plane pointing most downward
+    rdir = _unit(torch.linalg.cross(k, torch.linalg.cross(k, up)))
+    plow = tp + Rmaj[..., None] * rdir - rmin[..., None] * up
+    d_tilt = torch.sum((plow - pp) * up, dim=-1)
+
+    dist = torch.where(aligned, d_aligned, d_tilt)
+    pts = torch.where(aligned[..., None, None], ring, torch.stack([plow] * 4, dim=2))
+    nact = torch.where(aligned, 4, 1)
+    valid = torch.arange(4, device=pos.device) < nact[..., None]
+    sdist = torch.where(valid, dist[..., None], torch.inf)
+    n = up[:, :, None, :].expand_as(pts)
+    pa = torch.where(aligned[..., None], tp - up * (h - d_aligned)[..., None], plow)
+    pb = pa - up * dist[..., None]
+    return dist, pa, pb, pts, n, sdist
+
+
 def _point_box_dist_normal(half, p):
     """Signed distance + outward normal (box local frame) for points p
     (..., 3) against a box with half-extents `half` (Primitive
@@ -260,10 +439,165 @@ def _topk_by_depth(depth, valid, k):
     return torch.cat(chosen, dim=-1)
 
 
+def _dot3(x, y):
+    """x·y over the last axis as the fused multiply-add chain
+    fma(x2, y2, fma(x1, y1, x0·y0)) (`torch.addcmul` rounds once): the
+    rounding of the JAX package's contractions on the CPU. The vertices of
+    a face share a depth along its normal up to this rounding, and the
+    manifold takes them deepest first."""
+    x0, x1, x2 = x.unbind(-1)
+    y0, y1, y2 = y.unbind(-1)
+    return torch.addcmul(torch.addcmul(x0 * y0, x1, y1), x2, y2)
+
+
+def _seg_seg_mid(a1, a2, b1, b2):
+    """Midpoint of the closest points of segments a1-a2 and b1-b2."""
+    u = a2 - a1
+    v = b2 - b1
+    w0 = a1 - b1
+    a_ = torch.sum(u * u, -1)
+    b_ = torch.sum(u * v, -1)
+    c_ = torch.sum(v * v, -1)
+    d_ = torch.sum(u * w0, -1)
+    e_ = torch.sum(v * w0, -1)
+    den = a_ * c_ - b_ * b_
+    sn = torch.where(den > 1e-18,
+                     (b_ * e_ - c_ * d_) / torch.where(den > 1e-18, den, 1.0), 0.0)
+    sn = sn.clamp(0.0, 1.0)
+    tn = torch.where(c_ > 1e-18,
+                     (b_ * sn + e_) / torch.where(c_ > 1e-18, c_, 1.0), 0.0)
+    tn = tn.clamp(0.0, 1.0)
+    pa2 = a1 + u * sn[..., None]
+    pb2 = b1 + v * tn[..., None]
+    return 0.5 * (pa2 + pb2)
+
+
+def _convex_convex(scene, pos, quat_b, pairs):
+    """General convex pair: batched GJK witnesses for the separated case, the
+    MTV normal when touching or penetrating (exact over the hull directions
+    when the scene has hull tables, else sampled), and a bidirectional
+    vertex-vs-supporting-plane manifold of up to 4+4 slots, deepest first
+    (the reference does polyhedral V-Clip / signed distance,
+    src/Polyhedron.cpp, src/GJK.cpp). Edge-edge-only penetrations fall back
+    to the closest points of the two supporting edges."""
+    from . import gjk as gjk_mod
+
+    dtype, dev = pos.dtype, pos.device
+    ga, gb = _pair_geoms(scene, pairs)
+    pa_, qa = geom_world_pose(scene, pos, quat_b, ga)
+    pb_, qb = geom_world_pose(scene, pos, quat_b, gb)
+    va = pa_[:, :, None, :] + quat.rotate(qa[:, :, None, :], scene.geom_verts[ga])
+    vb = pb_[:, :, None, :] + quat.rotate(qb[:, :, None, :], scene.geom_verts[gb])
+    nva = scene.geom_nverts[ga]
+    nvb = scene.geom_nverts[gb]
+    B, P = va.shape[:2]
+    # GJK and the MTV run in float64 whatever the scene's dtype: their
+    # tolerances (1e-18, 1e-10 and 1e-9 in `gjk`) are float64 sizes, and in
+    # float32 the JAX package's GJK reports a 0.1 mm penetration as 0.23 m
+    # of separation (ROADMAP §3). A float64 scene is unchanged.
+    wide = torch.float64
+    res = gjk_mod.gjk(va.to(wide), nva, vb.to(wide), nvb)
+    res = gjk_mod.GJKResult(res.dist.to(dtype), res.pa.to(dtype), res.pb.to(dtype),
+                            res.intersecting)
+    if int(np.max(scene.host["geom_nhn"], initial=0)) > 0:
+        # exact polytope penetration: the Minkowski-difference support
+        # minimized over both bodies' hull face normals and the pairwise
+        # edge-direction crosses (src/Polyhedron.cpp:252-340)
+        fa = quat.rotate(qa[:, :, None, :], scene.geom_hull_normals[ga])
+        fb = quat.rotate(qb[:, :, None, :], scene.geom_hull_normals[gb])
+        ea = quat.rotate(qa[:, :, None, :], scene.geom_hull_edges[ga])
+        eb = quat.rotate(qb[:, :, None, :], scene.geom_hull_edges[gb])
+        FN = fa.shape[2]
+        ED = ea.shape[2]
+        ar_f = torch.arange(FN, device=dev)
+        ar_e = torch.arange(ED, device=dev)
+        ok_fa = ar_f < scene.geom_nhn[ga][:, None]
+        ok_fb = ar_f < scene.geom_nhn[gb][:, None]
+        ok_ea = ar_e < scene.geom_nhe[ga][:, None]
+        ok_eb = ar_e < scene.geom_nhe[gb][:, None]
+        cr = torch.linalg.cross(ea[:, :, :, None, :], eb[:, :, None, :, :]).reshape(
+            B, P, ED * ED, 3)
+        crn = _norm(cr, keepdim=True)
+        ok_cr = ((ok_ea[:, :, None] & ok_eb[:, None, :]).reshape(P, ED * ED)
+                 & (crn[..., 0] > 1e-9))
+        cr = cr / crn.clamp_min(1e-30)
+        cands = torch.cat([fa, fb, cr], dim=2)
+        cand_ok = torch.cat([ok_fa.expand(B, P, FN), ok_fb.expand(B, P, FN), ok_cr],
+                            dim=2)
+        pen_depth, pen_n = gjk_mod.mtv_exact(va.to(wide), nva, vb.to(wide), nvb,
+                                             cands.to(wide), cand_ok)
+    else:
+        pen_depth, pen_n = gjk_mod.mtv(va.to(wide), nva, vb.to(wide), nvb)
+    pen_depth, pen_n = pen_depth.to(dtype), pen_n.to(dtype)
+
+    d = torch.where(res.intersecting, -pen_depth, res.dist)
+    n_sep = res.pa - res.pb
+    nn = _norm(n_sep, keepdim=True)
+    n_sep = torch.where(nn > 1e-9, n_sep / nn.clamp_min(1e-30), pen_n)
+    n = torch.where(res.intersecting[..., None], pen_n, n_sep)  # B -> A
+
+    # supporting planes: B's extreme toward A (along +n), A's toward B
+    vmask_a = torch.arange(va.shape[2], device=dev) < nva[:, None]
+    vmask_b = torch.arange(vb.shape[2], device=dev) < nvb[:, None]
+    dots_a = _dot3(va, n[:, :, None, :])
+    dots_b = _dot3(vb, n[:, :, None, :])
+    hB = torch.where(vmask_b, dots_b, -torch.inf).amax(dim=-1)   # B top
+    sA = torch.where(vmask_a, dots_a, torch.inf).amin(dim=-1)    # A bottom
+
+    face_tol = 10 * math.sqrt(cfg.eps(dtype))
+
+    # A's vertices against B's plane, B's against A's (depth = signed
+    # distance along n)
+    depth_a = dots_a - hB[..., None]
+    cand_a = vmask_a & (depth_a <= face_tol)
+    depth_b = sA[..., None] - dots_b
+    cand_b = vmask_b & (depth_b <= face_tol)
+
+    idx_a = _topk_by_depth(depth_a, cand_a, 4)
+    idx_b = _topk_by_depth(depth_b, cand_b, 4)
+    dep_a = _take(depth_a, idx_a)
+    dep_b = _take(depth_b, idx_b)
+    pts_a = _take(va, idx_a) - 0.5 * dep_a[..., None] * n[:, :, None, :]
+    pts_b = _take(vb, idx_b) + 0.5 * dep_b[..., None] * n[:, :, None, :]
+    sd_a = torch.where(_take(cand_a, idx_a), dep_a, torch.inf)
+    sd_b = torch.where(_take(cand_b, idx_b), dep_b, torch.inf)
+
+    pts = torch.cat([pts_a, pts_b], dim=2)          # (B, P, 8, 3)
+    sdist = torch.cat([sd_a, sd_b], dim=2)          # (B, P, 8)
+    more = torch.full((B, P, 7), torch.inf, dtype=dtype, device=dev)
+
+    # separated: the single GJK-witness contact in slot 0
+    point_sep = 0.5 * (res.pa + res.pb)
+    sep = ~res.intersecting & (res.dist > face_tol)
+    pts = torch.where(sep[..., None, None], point_sep[:, :, None, :], pts)
+    sdist = torch.where(sep[..., None], torch.cat([res.dist[..., None], more], dim=2),
+                        sdist)
+
+    # penetrating with no vertex-plane candidate (edge-edge): the closest
+    # points between the supporting segments, each body's two extreme
+    # vertices along the contact normal (stable sort: ties keep their order)
+    da_sorted = torch.argsort(torch.where(vmask_a, dots_a, torch.inf), dim=-1,
+                              stable=True)
+    db_sorted = torch.argsort(torch.where(vmask_b, -dots_b, torch.inf), dim=-1,
+                              stable=True)
+    fb_pt = _seg_seg_mid(
+        _take(va, da_sorted[..., :1])[..., 0, :], _take(va, da_sorted[..., 1:2])[..., 0, :],
+        _take(vb, db_sorted[..., :1])[..., 0, :], _take(vb, db_sorted[..., 1:2])[..., 0, :])
+
+    have = torch.isfinite(sdist).any(dim=-1)
+    pts = torch.where(have[..., None, None], pts, fb_pt[:, :, None, :])
+    sdist = torch.where(have[..., None], sdist, torch.cat([d[..., None], more], dim=2))
+    return d, res.pa, res.pb, pts, n[:, :, None, :].expand_as(pts), sdist
+
+
 _KERNELS = {
     sc.K_SPHERE_SPHERE: _sphere_sphere,
     sc.K_SPHERE_PLANE: _sphere_plane,
     sc.K_BOX_SPHERE: _box_sphere,
+    sc.K_CYLINDER_PLANE: _cylinder_plane,
+    sc.K_TORUS_PLANE: _torus_plane,
+    sc.K_CONE_PLANE: _cone_plane,
+    sc.K_CONVEX_CONVEX: _convex_convex,
 }
 
 

@@ -7,7 +7,9 @@ src/XMLReader.cpp:151-204) into the port's compiled `Scene` + initial
     scene, state, opts = mobyxml.load("scenes/fixed-articulated-table.xml",
                                       device="cuda")
 
-Covered: Sphere, Box and Plane primitives; GravityForce and StokesDragForce;
+Covered: Sphere, Box, Plane, Cylinder, Cone, Torus, VertexCloud and
+Polyhedron (a convex OBJ, read relative to the scene file) primitives;
+GravityForce and StokesDragForce;
 RigidBody (enabled, position, rpy/quat/aangle, velocities,
 InertiaFromPrimitive, CollisionGeometry); RCArticulatedBody with inline
 links and joints (fixed, revolute, prismatic, spherical, universal, planar;
@@ -22,9 +24,11 @@ penalty-kp/kv), an articulated body's <Gears> and the simulator's
 free bodies compile and step as in the JAX package.
 
 What the port does not run raises `NotImplementedError` naming it: a
-primitive other than Sphere, Box and Plane when a body refers to it (an
-unused one, e.g. a visualization-only shape, is ignored), an embedded SDF
-model, an articulated body read from a URDF file.
+Heightmap, HeightmapInline, TriangleMesh or TriangleMeshInline primitive when
+a body refers to it (an unused one, e.g. a visualization-only shape, is
+ignored), an embedded SDF model, an articulated body read from a URDF file;
+`SceneBuilder.compile` refuses the geometry pairs the narrow phase does not
+run (e.g. cylinder-sphere), naming the pair.
 """
 
 from __future__ import annotations
@@ -40,9 +44,11 @@ import numpy as np
 from ..core import scene as sc
 from ..dynamics import model as amdl
 
-# primitive tags the JAX reader accepts and the port's geometry does not run
-_UNPORTED_PRIMITIVES = ("Cylinder", "Cone", "Torus", "VertexCloud", "Heightmap",
-                        "Polyhedron", "TriangleMesh", "TriangleMeshInline",
+# primitive tags the port reads, and those the JAX reader accepts and the
+# port's geometry does not run
+_PRIMITIVES = ("Sphere", "Box", "Plane", "Cylinder", "Cone", "Torus",
+               "VertexCloud", "Polyhedron")
+_UNPORTED_PRIMITIVES = ("Heightmap", "TriangleMesh", "TriangleMeshInline",
                         "HeightmapInline")
 
 
@@ -107,7 +113,14 @@ class _Primitive:
     verts: np.ndarray = None
 
 
-def _parse_primitive(el):
+def _resolve_path(fname, base_dir):
+    if os.path.isabs(fname) or base_dir is None:
+        return fname
+    cand = os.path.join(base_dir, fname)
+    return cand if os.path.exists(cand) else fname
+
+
+def _parse_primitive(el, base_dir=None):
     """A `_Primitive`, or the tag name of a primitive the port does not run."""
     tag = el.tag
     if tag in _UNPORTED_PRIMITIVES:
@@ -116,23 +129,69 @@ def _parse_primitive(el):
     mass_attr = el.get("mass")
     density = el.get("density")
 
+    def mass_of(vol):
+        return float(mass_attr) if mass_attr else (float(density) * vol if density else 0.0)
+
     if tag == "Sphere":
         r = float(el.get("radius", 1.0))
-        vol = 4.0 / 3.0 * math.pi * r ** 3
-        m = float(mass_attr) if mass_attr else (float(density) * vol if density else 0.0)
+        m = mass_of(4.0 / 3.0 * math.pi * r ** 3)
         return _Primitive(sc.SPHERE, np.array([r]), pos, quat, m, sc.sphere_inertia(m, r))
     if tag == "Box":
         xl = float(el.get("xlen", 1.0))
         yl = float(el.get("ylen", 1.0))
         zl = float(el.get("zlen", 1.0))
-        vol = xl * yl * zl
-        m = float(mass_attr) if mass_attr else (float(density) * vol if density else 0.0)
+        m = mass_of(xl * yl * zl)
         half = np.array([xl / 2, yl / 2, zl / 2])
         return _Primitive(
             sc.BOX, half, pos, quat, m, sc.box_inertia(m, *half), sc.box_vertices(*half)
         )
     if tag == "Plane":
         return _Primitive(sc.PLANE, np.array([0.0]), pos, quat)
+    if tag == "VertexCloud":
+        # extension tag (the JAX package's xmlwriter round-trip of POLYHEDRON)
+        verts = _floats(el.get("vertices")).reshape(-1, 3)
+        m = float(mass_attr) if mass_attr else 0.0
+        return _Primitive(sc.POLYHEDRON, np.array([0.0]), pos, quat, m,
+                          np.eye(3) * 1e-12, verts)
+    if tag == "Cylinder":
+        r = float(el.get("radius", 1.0))
+        h = float(el.get("height", 1.0))
+        m = mass_of(math.pi * r * r * h)
+        return _Primitive(sc.CYLINDER, np.array([r, h]), pos, quat, m,
+                          sc.cylinder_inertia(m, r, h))
+    if tag == "Cone":
+        # XMLReader::read_cone; axis local Y, apex +H/2, base radius R
+        r = float(el.get("radius", 1.0))
+        h = float(el.get("height", 1.0))
+        m = mass_of(math.pi * r * r * h / 3.0)
+        # ConePrimitive::calc_mass_properties
+        iy = m * r * r / 3.0
+        ix = 0.1 * m * h * h + 3.0 / 20.0 * m * r * r
+        return _Primitive(sc.CONE, np.array([r, h]), pos, quat, m, np.diag([ix, iy, ix]))
+    if tag == "Torus":
+        R = float(el.get("major-radius", 1.0))
+        r = float(el.get("minor-radius", 0.1))
+        m = mass_of(2 * math.pi ** 2 * R * r * r)
+        # about the symmetry axis z
+        iz = m * (R ** 2 + 0.75 * r ** 2)
+        ix = m * (0.5 * R ** 2 + 0.625 * r ** 2)
+        return _Primitive(sc.TORUS, np.array([R, r]), pos, quat, m, np.diag([ix, ix, iz]))
+    if tag == "Polyhedron":
+        # XMLReader::read_polyhedron -> PolyhedralPrimitive (a convex
+        # polyhedron from an OBJ, src/PolyhedralPrimitive.cpp), kept as its
+        # convex vertex cloud
+        from ..geometry import trimesh
+
+        verts, faces = trimesh.load_obj(_resolve_path(el.get("filename"), base_dir))
+        m = float(mass_attr) if mass_attr else 0.0
+        inertia = np.eye(3) * 1e-12
+        if m > 0 and len(faces):
+            try:
+                inertia = trimesh.mesh_inertia(m, verts, faces)[0]
+            except ValueError:
+                pass
+        return _Primitive(sc.POLYHEDRON, np.array([0.0]), pos, quat, m,
+                          inertia, verts)
     raise ValueError(f"unsupported primitive tag {tag}")
 
 
@@ -140,8 +199,8 @@ def _prim(prims, pid) -> _Primitive:
     p = prims[pid]
     if isinstance(p, str):
         raise NotImplementedError(
-            f"the <{p}> primitive '{pid}' is not ported yet: Sphere, Box and "
-            "Plane are")
+            f"the <{p}> primitive '{pid}' is not ported yet (ported: "
+            f"{', '.join(_PRIMITIVES)})")
     return p
 
 
@@ -166,6 +225,7 @@ def load(path: str, post_build=None, device="cuda", dtype=None):
     (programs/driver.cpp:307-352).
     """
     root = ET.parse(path).getroot()
+    base_dir = os.path.dirname(os.path.abspath(path))
     opts = DriverOptions()
 
     driver = root.find("DRIVER")
@@ -186,8 +246,8 @@ def load(path: str, post_build=None, device="cuda", dtype=None):
     sim_el = None
 
     for el in moby:
-        if el.tag in ("Sphere", "Box", "Plane") + _UNPORTED_PRIMITIVES:
-            prims[el.get("id")] = _parse_primitive(el)
+        if el.tag in _PRIMITIVES + _UNPORTED_PRIMITIVES:
+            prims[el.get("id")] = _parse_primitive(el, base_dir)
         elif el.tag == "TetraMesh":
             # registered but inert in the reference too: XMLReader::
             # read_tetramesh's body is commented out (src/XMLReader.cpp:458)

@@ -4,7 +4,40 @@ dims; masked-out rows/columns are replaced by identity."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.autograd import forward_ad
+
+
+def solve_ex(A, b):
+    """A⁻¹·b for A (..., n, n) and b (..., n, k), with no error check: a
+    singular system gives non-finite values, which callers read as "not
+    solvable", as the JAX package reads `jnp.linalg.solve`'s.
+
+    Which exactly singular systems come out non-finite is decided by the LU's
+    rounding. On the CPU in float64 (the regression mode) A is therefore
+    factored by LAPACK's ``dgetrf`` as scipy links it, the factorization
+    `jnp.linalg.solve` uses on the CPU, and solved from those factors by
+    `torch.linalg.lu_solve`: duplicate or coplanar simplex points and
+    singular principal subsystems are then dropped in the same cases as in
+    the JAX package (MKL's LU, torch's own on the CPU, can leave a pivot of
+    rounding size there instead). On the card, and where a gradient or a
+    tangent may flow into A, this is `torch.linalg.solve_ex`."""
+    if (A.device.type != "cpu" or A.dtype != torch.float64
+            or (torch.is_grad_enabled() and A.requires_grad)
+            or forward_ad.unpack_dual(A).tangent is not None):
+        return torch.linalg.solve_ex(A, b, check_errors=False)[0]
+    from scipy.linalg import lapack
+
+    n = A.shape[-1]
+    flat = A.detach().reshape(-1, n, n).numpy()
+    lu = np.empty_like(flat)
+    piv = np.empty(flat.shape[:2], np.int32)
+    for i in range(flat.shape[0]):
+        lu[i], piv[i], _ = lapack.dgetrf(flat[i])
+    LU = torch.from_numpy(lu).reshape(A.shape)
+    pivots = torch.from_numpy(piv + 1).reshape(A.shape[:-1])
+    return torch.linalg.lu_solve(LU, pivots, b.expand(A.shape[:-2] + b.shape[-2:]))
 
 
 def _masked_system(M, mask):

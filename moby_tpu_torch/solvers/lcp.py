@@ -28,8 +28,8 @@ BPP, then the hand-written PPM kernel of `hopper_lcp`, then the plain
 cascade); a CPU tensor takes the plain cascade. ``cascade="accel"`` on a CPU
 tensor forces the accelerated cascade with the kernel's plain version in its
 place (tests). The ``_plain`` cascades are the JAX package's ``_xla`` ones.
-Masked sub-solves use Gauss–Jordan on float32 and `torch.linalg.solve` on
-float64 (`_use_gj`); `gj_invert_masked` and `gj_invert_pd` are the explicit
+Masked sub-solves use Gauss–Jordan on float32 and an LU solve on float64
+(`_use_gj`; `math.linalg.solve_ex`, LAPACK's LU on the CPU); `gj_invert_masked` and `gj_invert_pd` are the explicit
 inverses of the same elimination, for the IFT pullback of `difflcp` and the
 Riccati sweep of `mpc.ilqr`. The JAX package's opt-in working-set compaction
 (`bpp_compact_cap`, off by default) is not carried: its default is ported.
@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from .. import config as cfg
+from ..math import linalg
 
 # static panel width of the blocked elimination
 _GJ_BLOCK = 8
@@ -235,9 +236,9 @@ def solve_principal(M, rhs, nonbas):
         else:
             x, ok = gj_solve_masked(A, b, nonbas)
     else:
-        # solve_ex does not raise on a singular system: like LAPACK under
-        # JAX, it returns non-finite values, which `ok` reports
-        x = torch.linalg.solve_ex(A, b[..., None])[0][..., 0]
+        # a singular system gives non-finite values, which `ok` reports: in
+        # the cases the JAX package's LAPACK solve does (`linalg.solve_ex`)
+        x = linalg.solve_ex(A, b[..., None])[..., 0]
         ok = torch.isfinite(x).all(dim=-1)
     return torch.where(nonbas, x, 0.0), ok
 
@@ -489,7 +490,7 @@ def lcp_lemke(M, q, mask, piv_tol=-1.0, zero_tol=-1.0, skip=None):
         col_i = (leaving - n).clamp(0, n - 1)
         Mcol = torch.gather(M, 2, col_i[:, None, None].expand(B, n, 1))[..., 0]
         Be = torch.where(lz[:, None], -_onehot(leaving, n).to(dtype), Mcol)
-        d = torch.linalg.solve_ex(Bl, Be[..., None])[0][..., 0]
+        d = linalg.solve_ex(Bl, Be[..., None])[..., 0]
         solvable = torch.isfinite(d).all(dim=-1)
 
         j = d > ptol[:, None]

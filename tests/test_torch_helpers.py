@@ -406,11 +406,13 @@ def assert_same_fields(tobj, jfields, names):
 
 def assert_same_compiled(tscene, tstate, jscene, jstate):
     """The port's compiled Scene/State equal the JAX package's: every array
-    and static, the kind groups, and each articulated body's offsets and
-    model tables (equal, not close: both run the same host-side numpy)."""
+    and static, the hull tables (directions as sets), the kind groups, and
+    each articulated body's offsets and model tables (equal, not close: both
+    run the same host-side numpy)."""
     assert_same_fields(tscene, jax_fields(jscene),
                        tsc._SCENE_ARRAYS + tsc._SCENE_STATICS + ("body_names",))
     assert_same_fields(tstate, jax_fields(jstate), tsc._STATE_ARRAYS)
+    assert_same_hulls(tscene, jax_fields(jscene))
     assert set(tscene.kind_groups) == set(jscene.kind_groups)
     for key, grp in jscene.kind_groups.items():
         for f in ("pairs", "slots"):
@@ -593,3 +595,136 @@ def jittered_pair(jscene, jstate, B, seed, dz=0.0, dv=0.0, dw=0.0, dqd=0.0):
     jb = jb.replace(pos=jnp.asarray(pos), vel=jnp.asarray(vel),
                     omega=jnp.asarray(omega), qd_art=jnp.asarray(qd))
     return jb, tsc.state_from_arrays(jax_fields(jb), "cpu", torch.float64)
+
+
+# ---- curved solids on a plane and convex polyhedra, on either package ----
+
+S2 = np.sqrt(0.5)
+# local Y -> world x (a cylinder on its side), local Y -> world z (a cone
+# base down)
+Q_Y_TO_X = np.array([0.0, 0.0, -S2, S2])
+Q_Y_TO_Z = np.array([S2, 0.0, 0.0, S2])
+
+
+def cone_inertia(m, r, h):
+    """ConePrimitive::calc_mass_properties (the XML readers' formula)."""
+    ix = 0.1 * m * h * h + 3.0 / 20.0 * m * r * r
+    return np.diag([ix, m * r * r / 3.0, ix])
+
+
+def torus_inertia(m, R, r):
+    ix = m * (0.5 * R ** 2 + 0.625 * r ** 2)
+    return np.diag([ix, ix, m * (R ** 2 + 0.75 * r ** 2)])
+
+
+def build_curved(sc, lift=2e-4, spin=2.0, mu=0.5):
+    """A cylinder (r=0.5, h=1) on its side spinning about its axis, a cone
+    (r=0.6, h=1.2) base down and a torus (R=1, r=0.25) lying flat, `lift`
+    above one plane (kinds 4, 10 and 5); the pairs between the curved
+    bodies are disabled (they are support pairs)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.add_body("cyl", mass=1.0, inertia=sc.cylinder_inertia(1.0, 0.5, 1.0),
+               pos=np.array([0.0, 0.0, 0.5 + lift]), quat=Q_Y_TO_X,
+               ang_vel=np.array([spin, 0.0, 0.0]))
+    b.add_geom("cyl", sc.CYLINDER, [0.5, 1.0])
+    b.add_body("cone", mass=1.0, inertia=cone_inertia(1.0, 0.6, 1.2),
+               pos=np.array([3.0, 0.0, 0.6 + lift]), quat=Q_Y_TO_Z)
+    b.add_geom("cone", sc.CONE, [0.6, 1.2])
+    b.add_body("torus", mass=1.0, inertia=torus_inertia(1.0, 1.0, 0.25),
+               pos=np.array([-3.5, 0.0, 0.25 + lift]))
+    b.add_geom("torus", sc.TORUS, [1.0, 0.25])
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=mu, nk=4)
+    names = ("cyl", "cone", "torus")
+    for i, n in enumerate(names):
+        b.set_contact_params("ground", n, cp)
+        for m in names[i + 1:]:
+            b.disabled_pairs.add(tuple(sorted((n, m))))
+    return b
+
+
+OCTA = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1],
+                 [0, 0, -1.0]])
+
+
+def cube_verts(h):
+    return np.array([[sx * h, sy * h, sz * h] for sx in (-1, 1)
+                     for sy in (-1, 1) for sz in (-1, 1)], np.float64)
+
+
+def build_octa_on_box(sc, z0=0.6502):
+    """`tests/test_gjk.py::test_octahedron_rests_on_box`: an octahedron
+    (POLYHEDRON, 0.4 m to its tips) dropped tip down onto a fixed BOX
+    platform (kind 9, POLYHEDRON-BOX); at rest its centre is at 0.65 m."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("octa", mass=1.0, inertia=np.eye(3) * 0.05, pos=np.array([0, 0, z0]))
+    b.add_geom("octa", sc.POLYHEDRON, [0.0], verts=OCTA * 0.4)
+    b.add_body("plat", enabled=False)
+    b.add_geom("plat", sc.BOX, [2.0, 2.0, 0.25])
+    b.set_contact_params(
+        "octa", "plat", sc.ContactParams(epsilon=0.0, mu_coulomb=0.0, nk=4))
+    return b
+
+
+def build_convex(sc, lift=2e-4):
+    """Three islands of convex polyhedra, 10 m apart, their mutual pairs
+    disabled: the face-down octahedron stack on the plane
+    (`tests/test_convex_manifold.py::test_octahedron_stack_rests`; kinds 3
+    and 9), an octahedron tip down on a BOX platform (`build_octa_on_box`)
+    and a polyhedral cube on a polyhedral slab
+    (`test_poly_cube_rests_on_poly_slab`), each `lift` above its rest."""
+    n = np.ones(3) / np.sqrt(3.0)
+    axis = np.cross(n, [0.0, 0.0, -1.0])
+    axis /= np.linalg.norm(axis)
+    ang = np.arccos(-n[2])
+    q_fd = np.concatenate([axis * np.sin(ang / 2), [np.cos(ang / 2)]])
+    r_in = 0.5 / np.sqrt(3.0)
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    for name, z in (("o1", r_in + lift), ("o2", 3 * r_in + 2 * lift)):
+        b.add_body(name, mass=1.0, inertia=np.eye(3) * 0.05,
+                   pos=np.array([0.0, 0.0, z]), quat=q_fd)
+        b.add_geom(name, sc.POLYHEDRON, [0.0], verts=OCTA * 0.5)
+    b.add_body("octa", mass=1.0, inertia=np.eye(3) * 0.05,
+               pos=np.array([10.0, 0.0, 0.65 + lift]))
+    b.add_geom("octa", sc.POLYHEDRON, [0.0], verts=OCTA * 0.4)
+    b.add_body("plat", enabled=False, pos=np.array([10.0, 0.0, 0.0]))
+    b.add_geom("plat", sc.BOX, [2.0, 2.0, 0.25])
+    b.add_body("cube", mass=1.0, inertia=sc.box_inertia(1.0, 0.5, 0.5, 0.5),
+               pos=np.array([20.0, 0.0, 1.5 + lift]))
+    b.add_geom("cube", sc.POLYHEDRON, [0.0], verts=cube_verts(0.5))
+    b.add_body("slab", enabled=False, pos=np.array([20.0, 0.0, 0.0]))
+    b.add_geom("slab", sc.POLYHEDRON, [0.0],
+               verts=cube_verts(1.0) * np.array([4.0, 4.0, 1.0]))
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5)
+    for pair in (("ground", "o1"), ("o1", "o2"), ("cube", "slab")):
+        b.set_contact_params(*pair, cp)
+    b.set_contact_params(
+        "octa", "plat", sc.ContactParams(epsilon=0.0, mu_coulomb=0.0, nk=4))
+    islands = (("o1", "o2"), ("octa", "plat"), ("cube", "slab"))
+    for i, a in enumerate(islands):
+        for c in islands[i + 1:]:
+            for x in a:
+                for y in c:
+                    b.disabled_pairs.add(tuple(sorted((x, y))))
+    return b
+
+
+def assert_same_hulls(tscene, jfields):
+    """The port's hull tables equal the JAX package's: the triangles and
+    counts exactly, the face-normal and edge-direction sets of every
+    geometry as sets of rows."""
+    for k in ("geom_faces", "geom_nfaces", "geom_nhn", "geom_nhe"):
+        np.testing.assert_array_equal(t2n(getattr(tscene, k)), jfields[k], err_msg=k)
+    for k, cnt in (("geom_hull_normals", "geom_nhn"), ("geom_hull_edges", "geom_nhe")):
+        t, j = t2n(getattr(tscene, k)), jfields[k]
+        assert t.shape == j.shape, k
+        for g, c in enumerate(jfields[cnt]):
+            ts = {tuple(r) for r in np.round(t[g, :c], 12)}
+            js = {tuple(r) for r in np.round(j[g, :c], 12)}
+            assert ts == js, (k, g)

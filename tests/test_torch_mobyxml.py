@@ -5,8 +5,9 @@
 Both in-repo scenes and the articulated test scenes compile to the same
 arrays (equal, not close); a compiled JAX scene carried across with
 `scene_from_arrays` equals the port's own compile; what the port does not
-run raises `NotImplementedError` naming it; loading and stepping a scene
-imports neither JAX nor Triton.
+run raises `NotImplementedError` naming it; the curved and convex
+primitive tags (with a Polyhedron's OBJ) load to the JAX loader's arrays;
+loading and stepping a scene imports neither JAX nor Triton.
 """
 
 import pathlib
@@ -24,7 +25,7 @@ from moby_tpu_torch.io import mobyxml as txml
 from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
     SITTING_BOX_XML, TABLE_XML, assert_same_compiled, build_limited_pendulum,
-    build_pendulum_ball, torch_scene_state,
+    build_pendulum_ball, t2n, torch_scene_state,
 )
 
 REPO = pathlib.Path(__file__).parents[1]
@@ -83,18 +84,133 @@ _CYLINDER_SCENE = """<XML><MOBY>
   </TimeSteppingSimulator>
 </MOBY></XML>"""
 
+_UNPORTED_TAGS = {
+    "HeightmapInline": '<HeightmapInline id="c1" rows="2" cols="2" heights="0 0 0 0" />',
+    "TriangleMeshInline": ('<TriangleMeshInline id="c1" vertices="0 0 0 1 0 0 0 1 0 0 0 1" '
+                           'faces="0 2 1 0 1 3 0 3 2 1 2 3" mass="1" />'),
+}
+
 
 def test_unported_primitive_raises_naming_it(tmp_path):
-    used = tmp_path / "used.xml"
-    used.write_text(_CYLINDER_SCENE.format(
+    """A primitive the port does not run (HeightmapInline,
+    TriangleMeshInline) is refused by name where a body uses it, and
+    ignored where none does; a cylinder on a plane loads like the JAX
+    package's."""
+    for tag, prim in _UNPORTED_TAGS.items():
+        doc = _CYLINDER_SCENE.replace(
+            '<Cylinder id="c1" radius="0.5" height="1" density="1.0" />', prim)
+        used = tmp_path / f"used_{tag}.xml"
+        used.write_text(doc.format(inertia="", geom="c1"))
+        with pytest.raises(NotImplementedError, match=tag):
+            txml.load(str(used), device="cpu")
+        # defined but referred to by no body (a visualization-only shape): loads
+        unused = tmp_path / f"unused_{tag}.xml"
+        unused.write_text(doc.format(inertia="", geom="p"))
+        scene, _, _ = txml.load(str(unused), device="cpu")
+        assert scene.nb == 2
+    can = tmp_path / "can.xml"
+    can.write_text(_CYLINDER_SCENE.format(
         inertia='<InertiaFromPrimitive primitive-id="c1" />', geom="c1"))
-    with pytest.raises(NotImplementedError, match="Cylinder"):
-        txml.load(str(used), device="cpu")
-    # defined but referred to by no body (a visualization-only shape): loads
-    unused = tmp_path / "unused.xml"
-    unused.write_text(_CYLINDER_SCENE.format(inertia="", geom="p"))
-    scene, _, _ = txml.load(str(unused), device="cpu")
-    assert scene.nb == 2
+    jscene, jstate, _ = jxml.load(str(can))
+    tscene, tstate, _ = txml.load(str(can), device="cpu")
+    assert_same_compiled(tscene, tstate, jscene, jstate)
+    assert [k for k, _ in tscene.kind_groups] == [tsc.K_CYLINDER_PLANE]
+
+
+_OCTA_OBJ = """# an octahedron, outward faces
+v 0.3 0 0
+v -0.3 0 0
+v 0 0.3 0
+v 0 -0.3 0
+v 0 0 0.3
+v 0 0 -0.3
+f 1 3 5
+f 3 2 5
+f 2 4 5
+f 4 1 5
+f 3 1 6
+f 2 3 6
+f 4 2 6
+f 1 4 6
+"""
+
+_SHAPES_SCENE = """<XML>
+<DRIVER step-size="0.001" />
+<MOBY>
+  <Cylinder id="cyl" radius="0.5" height="1" density="2.0" />
+  <Cone id="cone" radius="0.6" height="1.2" mass="1.5" />
+  <Torus id="tor" major-radius="1.0" minor-radius="0.25" density="0.5" />
+  <Polyhedron id="oct" filename="octa.obj" mass="0.8" />
+  <VertexCloud id="tet" vertices="0 0 0  0.4 0 0  0 0.4 0  0 0 0.4" mass="0.3" />
+  <Plane id="p" />
+  <GravityForce id="g" accel="0 0 -9.81" />
+  <RigidBody id="can" position="0 0 0.5002" rpy="0 0 1.5707963267949" angular-velocity="2 0 0">
+    <InertiaFromPrimitive primitive-id="cyl" />
+    <CollisionGeometry primitive-id="cyl" />
+  </RigidBody>
+  <RigidBody id="cone" position="3 0 0.6002" rpy="1.5707963267949 0 0">
+    <InertiaFromPrimitive primitive-id="cone" />
+    <CollisionGeometry primitive-id="cone" />
+  </RigidBody>
+  <RigidBody id="torus" position="-3.5 0 0.2502">
+    <InertiaFromPrimitive primitive-id="tor" />
+    <CollisionGeometry primitive-id="tor" />
+  </RigidBody>
+  <RigidBody id="poly" position="0 4 0.3002">
+    <InertiaFromPrimitive primitive-id="oct" />
+    <CollisionGeometry primitive-id="oct" />
+  </RigidBody>
+  <RigidBody id="cloud" position="0.1 4 0.65">
+    <InertiaFromPrimitive primitive-id="tet" />
+    <CollisionGeometry primitive-id="tet" />
+  </RigidBody>
+  <RigidBody id="ground" enabled="false"><CollisionGeometry primitive-id="p" /></RigidBody>
+  <TimeSteppingSimulator>
+    <DynamicBody dynamic-body-id="can" /><DynamicBody dynamic-body-id="cone" />
+    <DynamicBody dynamic-body-id="torus" /><DynamicBody dynamic-body-id="poly" />
+    <DynamicBody dynamic-body-id="cloud" /><DynamicBody dynamic-body-id="ground" />
+    <RecurrentForce recurrent-force-id="g" />
+    <ContactParameters object1-id="ground" object2-id="can" mu-coulomb="0.5" epsilon="0" />
+    <ContactParameters object1-id="ground" object2-id="poly" mu-coulomb="0.5" epsilon="0" />
+    <ContactParameters object1-id="poly" object2-id="cloud" mu-coulomb="0.3" epsilon="0" />
+{disabled}
+  </TimeSteppingSimulator>
+</MOBY></XML>"""
+
+
+def write_shapes_scene(directory):
+    """The primitive tags of this slice in one scene file, its Polyhedron
+    an OBJ beside it: a cylinder, a cone and a torus on the plane, an
+    octahedron on the plane and a tetrahedral vertex cloud on the
+    octahedron; the pairs of the support-pair kinds disabled. Returns the
+    scene's path."""
+    curved = ("can", "cone", "torus")
+    pairs = [(a, b) for i, a in enumerate(curved) for b in curved[i + 1:]]
+    pairs += [(a, b) for a in curved for b in ("poly", "cloud")]
+    disabled = "\n".join(f'    <DisabledPair object1-id="{a}" object2-id="{b}" />'
+                          for a, b in pairs)
+    (directory / "octa.obj").write_text(_OCTA_OBJ)
+    path = directory / "shapes.xml"
+    path.write_text(_SHAPES_SCENE.format(disabled=disabled))
+    return path
+
+
+def test_curved_and_convex_tags_load_like_jax(tmp_path):
+    """<Cylinder>, <Cone>, <Torus>, <Polyhedron> (an OBJ read relative to
+    the scene file) and <VertexCloud> load to the JAX loader's arrays, hull
+    tables and masses; the pairs are kinds 3, 4, 5, 9 and 10."""
+    path = write_shapes_scene(tmp_path)
+    jscene, jstate, jopts = jxml.load(str(path))
+    tscene, tstate, topts = txml.load(str(path), device="cpu")
+    assert topts.step_size == jopts.step_size == 1e-3
+    assert_same_compiled(tscene, tstate, jscene, jstate)
+    assert {k for k, _ in tscene.kind_groups} == {3, 4, 5, 9, 10}
+    # masses from the tags: density x volume, or the mass given
+    np.testing.assert_allclose(
+        t2n(tscene.mass)[:5],
+        [2.0 * np.pi * 0.25, 1.5, 0.5 * 2 * np.pi ** 2 * 0.0625, 0.8, 0.3])
+    cscene, cstate = torch_scene_state(jscene, jstate)
+    assert_same_compiled(cscene, cstate, jscene, jstate)
 
 
 def test_load_defaults_to_the_card():

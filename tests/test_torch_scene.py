@@ -7,6 +7,7 @@ a compiled JAX scene across unchanged.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -17,10 +18,11 @@ from moby_tpu_torch.core import scene as tsc
 from moby_tpu_torch.dynamics import model as tmdl
 from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
-    assert_same_compiled, assert_same_fields, build_ballpush, build_box_on_box,
-    build_box_on_plane, build_compliant_ball, build_gear_pendulum,
-    build_planar_box, build_sphere_chain, build_stack, jax_fields,
-    pendulum_model, torch_scene_state,
+    assert_same_compiled, assert_same_fields, assert_same_hulls, build_ballpush,
+    build_box_on_box, build_box_on_plane, build_compliant_ball, build_convex,
+    build_curved, build_gear_pendulum, build_octa_on_box, build_planar_box,
+    build_sphere_chain, build_stack, jax_fields, pendulum_model,
+    torch_scene_state,
 )
 
 SCENES = {
@@ -30,6 +32,9 @@ SCENES = {
     "box_on_plane": build_box_on_plane,
     "box_on_box": build_box_on_box,
     "box_on_box_capped": lambda sc: build_box_on_box(sc, max_slots=6),
+    "curved": build_curved,
+    "convex": build_convex,
+    "octa_on_box": build_octa_on_box,
 }
 
 
@@ -41,6 +46,7 @@ def test_compile_matches_jax(name):
     jf = jax_fields(jscene)
     assert_same_fields(tscene, jf, tsc._SCENE_ARRAYS + tsc._SCENE_STATICS
                  + ("body_names",))
+    assert_same_hulls(tscene, jf)
     assert (tscene.n_vars, tscene.n_ineq, tscene.n_lcp) == (
         jscene.n_vars, jscene.n_ineq, jscene.n_lcp)
     assert set(tscene.kind_groups) == set(jscene.kind_groups)
@@ -58,11 +64,12 @@ def test_stack_sizes():
     assert scene.n_friction_rows == 30 and scene.n_lcp == 66
 
 
-@pytest.mark.parametrize("name", ["stack_nk16", "box_on_plane"])
+@pytest.mark.parametrize("name", ["stack_nk16", "box_on_plane", "convex"])
 def test_from_arrays_round_trip(name):
     jscene, jstate = SCENES[name](jsc).compile()
     tscene, tstate = torch_scene_state(jscene, jstate)
     assert_same_fields(tscene, jax_fields(jscene), tsc._SCENE_ARRAYS + tsc._SCENE_STATICS)
+    assert_same_hulls(tscene, jax_fields(jscene))
     assert_same_fields(tstate, jax_fields(jstate), tsc._STATE_ARRAYS)
     # float32 on request; the state follows
     s32, st32 = torch_scene_state(jscene, jstate, torch.float32)
@@ -90,10 +97,30 @@ def test_compile_default_device_is_the_card():
         build_stack(tsc).compile()
 
 
+def test_curved_and_convex_tables():
+    """The new geometries' compiled tables: slots per kind (4 for the curved
+    kinds, 8 for convex-convex, one per vertex against the plane), the hull
+    directions of an octahedron (4 face normals and 6 edge directions up to
+    sign) and a box (3 normals; edges and the face diagonals of its hull
+    triangles), the bounding radii."""
+    scene, _ = build_curved(tsc).compile(device="cpu")
+    assert {k: n for k, n in scene.kind_groups} == {4: 4, 10: 4, 5: 4}
+    np.testing.assert_allclose(scene.host["geom_rmax"][1:],
+                               [np.hypot(0.5, 0.5), np.hypot(0.6, 0.6), 1.25])
+    assert scene.n_contacts == 12 and scene.host["geom_nhn"].sum() == 0
+    scene, _ = build_octa_on_box(tsc).compile(device="cpu")
+    assert list(scene.kind_groups) == [(9, 8)]
+    assert list(scene.host["geom_nhn"]) == [4, 3]
+    assert scene.host["geom_nhe"][0] == 6 and scene.host["geom_nhe"][1] > 3
+    assert scene.host["geom_nfaces"][0] == 8       # the octahedron's hull
+    n = scene.host["geom_hull_normals"][0, :4]
+    np.testing.assert_allclose(np.abs(n), 1 / np.sqrt(3.0), atol=1e-12)
+
+
 def _unported_features():
     def articulated(b):
-        # articulated bodies run; a link's geometry the port does not run
-        # is refused by name, as a free body's is
+        # articulated bodies run; a link's cylinder meets the stack's
+        # spheres in the support-pair kind, refused by the pair's name
         b.add_articulated("arm", pendulum_model(tmdl))
         b.add_geom("arm/rod", tsc.CYLINDER, [0.1, 1.0])
 
@@ -116,16 +143,52 @@ def _unported_features():
     def torus(b):
         b.add_geom("sph1", tsc.TORUS, [1.0, 0.2])
 
+    def polyhedron(b):
+        b.add_geom("sph1", tsc.POLYHEDRON, [0.0], verts=np.eye(3) - 0.25)
+
+    def trimesh_on_plane(b):
+        # plane against a mesh is kind 3 in the JAX package; the mesh
+        # geometry is not ported, so the pair is refused
+        b.add_body("mesh", mass=1.0, pos=np.array([5.0, 0.0, 1.0]))
+        b.add_geom("mesh", tsc.TRIMESH, [0.0], verts=np.eye(3),
+                   faces=np.array([[0, 1, 2]]))
+        for n in ("sph1", "sph2", "sph3"):
+            b.disabled_pairs.add(tuple(sorted((n, "mesh"))))
+
+    def heightmap_alone(b):
+        b.add_body("terrain", enabled=False)
+        b.add_geom("terrain", tsc.HEIGHTMAP, [1.0, 1.0], heights=np.zeros((2, 2)))
+        for n in ("sph1", "sph2", "sph3"):
+            b.disabled_pairs.add(tuple(sorted((n, "terrain"))))
+
     return {f.__name__: f for f in (
-        articulated, pool, plugin, heightmap, trimesh, cylinder, torus)}
+        articulated, pool, plugin, heightmap, trimesh, cylinder, torus,
+        polyhedron, trimesh_on_plane, heightmap_alone)}
+
+
+# what each refusal names: the pair (with its kind) where a pair reaches a
+# kind the narrow phase does not run, else the feature or the geometry
+_REFUSAL_NAMES = {
+    "articulated": r"kind 103 \(SPHERE-CYLINDER support pair\) of the pair SPHERE vs CYLINDER",
+    "pool": "pair pooling",
+    "plugin": "plugin contact kernels",
+    "heightmap": r"kind 7 \(sphere-heightmap\) of the pair SPHERE vs HEIGHTMAP",
+    "trimesh": r"kind 11 \(sphere-trimesh\) of the pair SPHERE vs TRIMESH",
+    "cylinder": r"kind 103 \(SPHERE-CYLINDER support pair\) of the pair SPHERE vs CYLINDER",
+    "torus": r"kind 105 \(SPHERE-TORUS support pair\) of the pair SPHERE vs TORUS",
+    "polyhedron": r"kind 107 \(SPHERE-POLYHEDRON support pair\) of the pair SPHERE vs POLYHEDRON",
+    "trimesh_on_plane": r"kind 3 \(plane-vertex solid\) of the pair PLANE vs TRIMESH",
+    "heightmap_alone": r"HEIGHTMAP geometry \(body 'terrain'\)",
+}
 
 
 @pytest.mark.parametrize("feature", list(_unported_features()))
 def test_unported_features_raise_at_compile(feature):
     b = build_stack(tsc, nk=4)
     _unported_features()[feature](b)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported") as err:
         b.compile(device="cpu")
+    assert re.search(_REFUSAL_NAMES[feature], str(err.value)), str(err.value)
 
 
 MODEL_SCENES = {
