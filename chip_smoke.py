@@ -38,11 +38,11 @@ It needs no network and no JAX. Phases, each of which fails the run:
              counts are set to 0 just before and read just after.
              Two more steps under torch.profiler then give the device's
              busy share of a step and the launches a step, by kernel name.
-5. parity  — the same scene at B=4 for 200 steps: card float32 against the
+5. parity  — the same scene at B=4 for 50 steps: card float32 against the
              port on the CPU in float64.
 6. mpc     — the full-width contact-MPC solve: `contact_mpc.solve_batch` on
              the ball-push task, B=1536 scenarios with per-scenario x jitter,
-             H=50, dt=0.02, 4 iLQR iterations, float32, record/replay and warm
+             H=50, dt=0.02, 2 iLQR iterations, float32, record/replay and warm
              start on, through the kernel route (every block-pivoting stage
              of the LCP cascade is one `bpp_lcp` launch). Launch counts are
              set to 0 just before and read just after. A second, untimed
@@ -57,12 +57,13 @@ It needs no network and no JAX. Phases, each of which fails the run:
              `bpp_lcp`'s block path), float32: (a) `contact_mpc.solve` at the
              example's own settings (one scenario, H=30, dt=0.02, 12
              iterations, target (0.6, 0.3)); (b) `solve_batch` at B=1024 with
-             x and y jitter in [-0.05, 0.05) m from `--seed`, H=30, 2
-             iterations, in five modes: rr (the default), rr with the hoisted
-             linearization, rr with forward-mode linearization (the block
-             linearizer), both, and rr with the bfloat16 Riccati form. For
-             each: solves/s, the launches and idle share of a one-iteration
-             solve, peak device memory, the hoist's chunk count, and
+             x and y jitter in [-0.05, 0.05) m from `--seed`, H=30, 1
+             iteration (BLOCK_ITERS), in six modes: rr (the default), rr with
+             the hoisted linearization, rr with forward-mode linearization
+             (the block linearizer, and through the whole step), both, and
+             rr with the bfloat16 Riccati form. For each: solves/s (the
+             launches and idle share of rr's and rr_fwd's, BLOCK_PROFILED),
+             peak device memory, the hoist's chunk count, and
              `bpp_lcp`'s launches (counts set to 0 just before, read just
              after) and calls with work. With the kernels phase, `bpp_lcp`
              is then held against `bpp_lcp_plain` on the recorded n=64 LCPs
@@ -83,7 +84,7 @@ It needs no network and no JAX. Phases, each of which fails the run:
              boxes on a plane, mu = inf: the no-slip model) loaded by
              `io.mobyxml.load` on the card, float32, B=512 scenarios with
              the spin ω_z drawn by numpy from `--seed` in [0.9, 1.1] rad/s,
-             2 warm-up steps then 30 of dt=1e-3 through `stepper.step`. Its
+             2 warm-up steps then 15 of dt=1e-3 through `stepper.step`. Its
              no-slip and stabilization LCPs (n = 40) reach `ppm_lcp`'s block
              path. The counts are set to 0 just before and read just after;
              it prints scenario-steps/s, the device's busy share and launches
@@ -93,9 +94,9 @@ It needs no network and no JAX. Phases, each of which fails the run:
              `ppm_lcp_plain` on the problems this run recorded, float32 and
              float64.
 12. artparity — card float32 against the port on the CPU in float64: the
-             table at B=4 over 100 steps (max |q_art| drift at 0.1 s below
+             table at B=4 over 50 steps (max |q_art| drift at 0.05 s below
              5e-3), and the limited pendulum of the repo's articulated tests
-             (stop at 0.5 rad) from q=1 over 800 steps (min q above
+             (stop at 0.5 rad) from q=1 over 400 steps (min q above
              0.5 - 1e-3, max |q| drift below 2e-2).
 13. models  — the other contact models at full width, float32, B=512,
              dt=1e-3, through `stepper.step`: the stack with the true
@@ -114,7 +115,7 @@ It needs no network and no JAX. Phases, each of which fails the run:
              recorded (the NQP's kappa pre-solves, the QP islands, the
              no-slip MLCPs, stabilization).
 14. modelsparity — card float32 against the port on the CPU in float64,
-             B=4, 8-50 steps (MODELS_PARITY_STEPS), for those four
+             B=4, 8-25 steps (MODELS_PARITY_STEPS), for those four
              configurations and a gear-coupled double pendulum and a
              planar-jointed box built in code: the
              largest position drift within MODELS_DRIFT_LIMIT, the bilateral
@@ -122,7 +123,7 @@ It needs no network and no JAX. Phases, each of which fails the run:
              settles within 10% of its spring compression mg/kp.
 15. regress — the port's regress CLI (`moby_tpu_torch.cli.regress`) on
              `scenes/sitting-box.xml` and `scenes/fixed-articulated-table.xml`,
-             200 steps of dt=1e-3 (the table 30), on the card and with
+             100 steps of dt=1e-3 (the table 15), on the card and with
              `--cpu`; the two dumps compared by the port's `compare` within
              5e-3.
 16. geometry — curved solids on a plane and convex polyhedra at full width,
@@ -155,6 +156,45 @@ It needs no network and no JAX. Phases, each of which fails the run:
              the regress CLI on a scene of <Cylinder>, <Cone>, <Torus> and a
              <Polyhedron> OBJ written to a temporary directory, 200 steps on
              the card and with `--cpu`, within 5e-3 by `compare`.
+18. trimesh — triangle meshes at full width, float32, B=512, dt=1e-3,
+             every body 1 t, lifted by [0, 0.2) mm from `--seed` and dropped at
+             0.4 m/s, 8 steps through `stepper.step` (MESH_STEPS), in four
+             scenes:
+             "meshes", the non-convex L-prism on the plane (kind 3) and a
+             sphere in the V-notch channel (kind 11, two faces at once);
+             "meshplatforms", a mesh cube on a BOX platform (kind 12);
+             "meshslabs", a mesh cube on a POLYHEDRON slab (kind 13 through its
+             hull triangles) and the 320-face icosphere on an extruded mesh
+             slab (kind 13 through the face-tiled closest-face loop); "bigmesh",
+             the 1,280-face icosphere on the plane (kind 3: 642 vertices capped
+             at 16 slots by the contact-slot top-k, on tied depths). (One
+             impact LCP covers a scene: the platform's and the slabs' pairs,
+             or the two icospheres, in one scene would make n = 192, past
+             `ppm_lcp`'s float32 gate.) The fifth scene, "meshstack", two
+             mesh cubes stacked on the plane (kinds 3 and 13), runs in
+             trimeshparity only: its float32 impact and stabilization LCPs
+             are singular, batched BPP and `ppm_lcp` verify few of them, and
+             the plain cascade that takes the rest makes a B=512 step last
+             19-165 s on the card (MESH_TIMED). For each: scenario-steps/s, the
+             device's busy share and launches a step, the launches and device
+             time of one `narrow_phase` call, `ppm_lcp`'s launches (counts set
+             to 0 just before, read just after) and calls with work, and the
+             peak device memory. With the kernels phase, `ppm_lcp` is then held
+             against `ppm_lcp_plain` on the LCPs these runs recorded (the QP's
+             by H·x) and on those the stack's trimeshparity run recorded, each
+             LCP origin's calls merged into one batch; on the stack's, a
+             problem may end done and fail complementarity where the plain
+             version's does too (`both_versions`, verify="as_plain").
+19. trimeshparity — the five scenes at B=4 over 2-20 steps (the stack 2:
+             ~30 s a step on the card), card float32
+             against the port on the CPU in float64: no NaN, the largest
+             position drift within MESH_DRIFT_LIMIT (five times the CPU float32
+             reading of `scripts/geometry_float32.py mesh`), no plane pair with
+             more active slots than VSLOT_CAP; the stack's card run records
+             what it hands `ppm_lcp` for the kernels phase; then the regress
+             CLI on a scene of <TriangleMesh> (two OBJs) and
+             <TriangleMeshInline> written to a temporary directory, 200 steps
+             on the card and with `--cpu`, within 5e-3 by `compare`.
 
 Then each kernel is timed on the inputs the main paths really gave it,
 beside its plain version, its bound and its launch floor (the same call with
@@ -165,11 +205,13 @@ the card's name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA device the script exits with a non-zero code and no result.
 `--phases kernels`, `--phases mpc`, `--phases block,blockparity,artmpc`,
-`--phases art`, `--phases models,modelsparity,regress` or
-`--phases geometry,geometryparity` are the short runs (no result line).
+`--phases art`, `--phases models,modelsparity,regress`,
+`--phases geometry,geometryparity` or `--phases trimesh,trimeshparity` are
+the short runs (no result line).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -181,12 +223,15 @@ import torch
 
 PHASES = ("device", "build", "kernels", "step", "parity", "mpc", "mpcparity",
           "block", "blockparity", "artmpc", "art", "artparity", "models",
-          "modelsparity", "regress", "geometry", "geometryparity")
+          "modelsparity", "regress", "geometry", "geometryparity", "trimesh",
+          "trimeshparity")
 BATCH = 512          # scenarios of the full-width step
 MPC_BATCH = 1536     # scenarios of the full-width contact-MPC solve
 MPC_HORIZON = 50     # steps of dt = MPC_DT in the MPC's horizon
 MPC_DT = 0.02
-MPC_ITERS = 4        # iLQR iterations of one solve
+# iLQR iterations of one solve (4 until the mesh phases took a run on a
+# slower host past the script's 1,200 s: PERF.md §6)
+MPC_ITERS = 2
 MPC_PARITY_BATCH = 8
 STAGE1_KEEP = 16     # of the step's stage-1 problems kept for the timing
 # final mean cost, card float32 (kernel route) against CPU float64 (batched
@@ -194,19 +239,22 @@ STAGE1_KEEP = 16     # of the step's stage-1 problems kept for the timing
 # another line-search step; the means agree far inside this
 MPC_PARITY_RTOL = 0.05
 STEPS = 50           # steps of the full-width run
-PARITY_STEPS = 200   # steps of the float32-card against float64-CPU run
+PARITY_STEPS = 50    # steps of the float32-card against float64-CPU run (200 before the mesh phases)
 TABLE_XML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes",
                          "fixed-articulated-table.xml")
 ART_BATCH = 512      # scenarios of the full-width articulated run
-# 30 timed steps, not 50: the new phases took the script past 8 minutes
-# (a table step is about 0.6-0.95 s on the host at B=512; PERF.md §5)
-ART_STEPS = 30
+# 15 timed steps, not 50: the new phases took the script past 8 minutes,
+# and the mesh phases past 1,200 s on a slower host (a table step is about
+# 0.6-0.95 s on the host at B=512; PERF.md §5)
+ART_STEPS = 15
 ART_WARMUP = 2
 ART_DT = 1e-3        # the JAX package's on-device smoke step (tpu_smoke.py:146)
 ART_PARITY_BATCH = 4
-# 100 and 400 steps, not 200 and 800: with the block-push phases a full run
-# on a slower host came to about 1,010 s of the 1,200 allowed (PERF.md §6)
-ART_PARITY_STEPS = 100
+# 50 and 400 steps, not 200 and 800: with the block-push phases a full run
+# on a slower host came to about 1,010 s of the 1,200 allowed (PERF.md §6),
+# and with the mesh phases one went past it (the table takes ~0.4 s a step
+# on the card at B=4)
+ART_PARITY_STEPS = 50
 ART_DRIFT_LIMIT = 5e-3      # max |q_art| drift at the end (tpu_smoke.py:154: at 0.2 s)
 PEND_STEPS = 400
 PEND_MIN_Q = 0.5 - 1e-3     # the JAX test's own bound (test_joint_limit_stops)
@@ -218,7 +266,12 @@ BLOCK_DT = 0.02
 BLOCK_TARGET = (0.6, 0.3)
 BLOCK_SINGLE_ITERS = 12
 BLOCK_BATCH = 1024
-BLOCK_ITERS = 2            # of each batch solve: keeps the script in its time
+# each batch solve runs one iteration (four, then two, before the mesh
+# phases), the one blockparity holds against rr, and the device is profiled
+# for rr and rr_fwd only (reverse against forward mode, PERF.md §7): a run
+# on a slower host went past the script's 1,200 s (PERF.md §6)
+BLOCK_ITERS = 1
+BLOCK_PROFILED = ("rr", "rr_fwd")
 BLOCK_JITTER = 0.05         # x and y jitter of the batch's blocks, metres
 BLOCK_MODES = (
     ("rr", {}),
@@ -273,8 +326,9 @@ MODELS_PARITY_BATCH = 4
 # for the NQP configurations and 0.2 s for the chain, and the CPU float64
 # reference of the NQP ones takes 0.5 s a step (the mixed scene's true-cone
 # sphere takes ~23 mini-steps a step there from step 55 on)
-MODELS_PARITY_STEPS = {"truecone": 8, "mixed": 8, "compliant": 50,
-                       "chain": 30, "gear": 50, "planar": 30}
+# (halved for compliant, chain, gear and planar with REGRESS_STEPS)
+MODELS_PARITY_STEPS = {"truecone": 8, "mixed": 8, "compliant": 25,
+                       "chain": 15, "gear": 25, "planar": 15}
 # largest position/joint drift, card float32 against CPU float64: five
 # times what the same code gave in float32 against float64 on the CPU
 # (B=4, seed 1) over 30 steps (truecone, mixed) or 100 (the rest): 1.79e-3,
@@ -319,7 +373,9 @@ GEOM_REGRESS_STEPS = 200
 # approach slower than it is never solved and the mini-step loop stops
 # (ROADMAP §3)
 GEOM_MASS = 1000.0
-REGRESS_STEPS = {"sitting-box.xml": 200, "fixed-articulated-table.xml": 30}
+# 100 and 15 steps (200 and 30 before the mesh phases): a whole run on a
+# slower host took 1,221.8 s of the 1,200 allowed (PERF.md §6)
+REGRESS_STEPS = {"sitting-box.xml": 100, "fixed-articulated-table.xml": 15}
 REGRESS_DT = 1e-3
 REGRESS_TOL = 5e-3          # scripts/tpu_smoke.py's table drift at 0.2 s
 SOURCE = "moby_tpu_torch/csrc/ppm_lcp.cu"
@@ -549,13 +605,34 @@ def ptxas_report(text):
     return [tuple(r) for r in rows]
 
 
+def verified(M, q, mask, z):
+    """(B,) bool: z satisfies complementarity at the cascade's `_check_tol`
+    (`lcp._verify`, what `_solve_accel` asks of a problem `ppm_lcp` calls
+    done before it takes its z)."""
+    from moby_tpu_torch.solvers import lcp
+
+    Mp, qp = lcp.pad_lcp(M, q, mask)
+    return lcp._verify(Mp, qp, z, mask, lcp._check_tol(Mp, mask))
+
+
 def both_versions(name, M, q, mask, z0, verify=True, solver="ppm", **kw):
     """Kernel and plain version on one batch: (zk, dk, zp, dp, pivots), after
     checking that the kernel's z is finite and (with `verify`) that every
-    problem either version calls done satisfies complementarity. `solver` is
-    "ppm" or "bpp"; `kw` goes to both versions (max_bpp, max_piv, check_tol). For "bpp"
+    problem either version calls done satisfies complementarity. With
+    `verify="as_plain"` a problem may be done and fail complementarity where
+    the plain version's is as well: PPM's `done` reads its pivot rule's own
+    tolerance on z solved from the nonbasic system, which on a singular
+    float32 LCP (the mesh stack's) is not the residual `_verify` reads, so
+    the pivoting itself ends done there, and the cascade re-verifies. The
+    kernel must then call done no problem the plain version solves (done and
+    complementary) and leave complementarity. `done` itself is read, not
+    held: on these singular LCPs PPM's first-minimum rule meets ties that
+    rounding decides, so a chain that ends done in one version can run into
+    the pivot cap in the other (`check_velocity_case`; 6 of the stack's 22
+    stabilization problems on the card). `solver` is "ppm" or "bpp";
+    `kw` goes to both versions (max_bpp, max_piv, check_tol). For "bpp"
     `pivots` counts block iterations and PPM pivots together."""
-    from moby_tpu_torch.solvers import hopper_lcp, lcp
+    from moby_tpu_torch.solvers import hopper_lcp
 
     if solver == "ppm":
         zk, dk = hopper_lcp.ppm_lcp(M, q, mask, z0=z0, **kw)
@@ -570,11 +647,22 @@ def both_versions(name, M, q, mask, z0, verify=True, solver="ppm", **kw):
         piv = piv + its
     torch.cuda.synchronize()
     assert torch.isfinite(zk).all(), f"{name}: kernel returned non-finite z"
-    if verify:
-        Mp, qp = lcp.pad_lcp(M, q, mask)
-        tol = lcp._check_tol(Mp, mask)
+    if verify == "as_plain":
+        work = mask.any(dim=1)
+        ok_k, ok_p = verified(M, q, mask, zk), verified(M, q, mask, zp)
+        worse = int((dk & ~ok_k & dp & ok_p).sum())
+        n_diff = int(((dk != dp) & work).sum())
+        log(f"[kernels] {name:44s} {str(M.dtype)[6:]:8s} B={M.shape[0]} n={M.shape[1]} "
+            f"with work={int(work.sum())}: done and failing complementarity "
+            f"kernel={int((dk & ~ok_k).sum())} plain={int((dp & ~ok_p).sum())}, of "
+            f"those the kernel's where the plain version solves it={worse}; done "
+            f"differs on {n_diff}")
+        assert worse == 0, (
+            f"{name}: {worse} problems the plain version solves the kernel calls "
+            f"done and fails complementarity")
+    elif verify:
         for who, z, d in (("kernel", zk, dk), ("plain", zp, dp)):
-            bad = int((d & ~lcp._verify(Mp, qp, z, mask, tol)).sum())
+            bad = int((d & ~verified(M, q, mask, z)).sum())
             assert bad == 0, f"{name}: {bad} problems {who} calls done fail complementarity"
     return zk, dk, zp, dp, piv
 
@@ -1352,17 +1440,10 @@ def phase_block(seed):
 
         # the launches and device time of a one-iteration solve (the first
         # call: the profiler reads device time only, so the host's first-call
-        # work does not enter), then its unprofiled wall time
+        # work does not enter); the other modes' timed solve is their first
         busy = {}
-        mpc_device_share(lambda: solve(1), None, tag=f"block {name}", out=busy)
-        t0 = time.time()
-        res1 = solve(1)
-        torch.cuda.synchronize()
-        short = time.time() - t0
-        idle = None if busy.get("busy") is None else 1.0 - busy["busy"] / short
-        kernels = busy.get("kernels")
-        log(f"[block {name}] one-iteration solve: {short * 1e3:.1f} ms unprofiled, "
-            f"idle share {idle if idle is None else round(idle, 3)}, {kernels} kernel launches")
+        if name in BLOCK_PROFILED:
+            mpc_device_share(lambda: solve(1), None, tag=f"block {name}", out=busy)
         # the timed solve: counts to 0 just before, read just after
         call, restore = counting_bpp(recorded if name == "rr" else None)
         torch.cuda.reset_peak_memory_stats()
@@ -1379,13 +1460,17 @@ def phase_block(seed):
         nan = int((~torch.isfinite(res.cost)).sum())
         worse = int((res.cost > c0s).sum())
         fell = float((res.cost < c0s).double().mean())
+        idle = None if busy.get("busy") is None else 1.0 - busy["busy"] / elapsed
+        if name in BLOCK_PROFILED:
+            log(f"[block {name}] the timed solve: idle share "
+                f"{idle if idle is None else round(idle, 3)}, {busy.get('kernels')} "
+                f"kernel launches")
         modes[name] = {
             "solves_per_s": B / elapsed, "seconds": elapsed,
-            "one_iteration_s": short, "one_iteration_launches": kernels,
-            "one_iteration_idle_share": idle, "peak_bytes": peak,
-            "hoist_chunks": chunks, "bpp_lcp_launches": launches, **work,
-            "nan_costs": nan, "above_start": worse, "cost": res.cost.double().cpu(),
-            "cost_1": res1.cost.double().cpu(), "options": options,
+            "launches_profiled": busy.get("kernels"), "idle_share": idle,
+            "peak_bytes": peak, "hoist_chunks": chunks, "bpp_lcp_launches": launches,
+            **work, "nan_costs": nan, "above_start": worse,
+            "cost": res.cost.double().cpu(), "options": options,
             "linearize_fwd": kw.get("linearize_fwd", False),
         }
         log(f"[block] (b) {name}: B={B} H={BLOCK_HORIZON} iters={BLOCK_ITERS}: "
@@ -1485,21 +1570,21 @@ def phase_block_parity(block):
         f"{abs(c_gpu - c_cpu) / c_cpu:.3e}")
     assert dist <= BLOCK_TARGET_DIST, f"blockparity: (a) the block ends {dist:.4f} m off"
     out = {"single_target_dist": dist, "single_cost_rel": abs(c_gpu - c_cpu) / c_cpu}
-    ref1, ref = block["modes"]["rr"]["cost_1"], block["modes"]["rr"]["cost"]
+    ref = block["modes"]["rr"]["cost"]
     for name, m in block["modes"].items():
         assert m["nan_costs"] == 0, f"blockparity: {name} has {m['nan_costs']} NaN costs"
         assert m["above_start"] == 0, (
             f"blockparity: {name} has {m['above_start']} members above their start")
         if name == "rr":
             continue
-        one = float(((m["cost_1"] - ref1).abs() / ref1.abs()).median())
-        final = float(((m["cost"] - ref).abs() / ref.abs()).median())
+        one = float(((m["cost"] - ref).abs() / ref.abs()).median())
         out[name] = one
         held = name != "rr_bf16"
-        log(f"[blockparity] (b) {name}: one iteration, median |c - c_rr| / |c_rr| = "
-            f"{one:.3e}" + (f" (limit {BLOCK_MODE_RTOL})" if held else " (a reading)")
-            + f"; after {BLOCK_ITERS} iterations {final:.3e} (a reading); mean cost "
-            f"{float(m['cost'].mean()):.4f} against rr's {float(ref.mean()):.4f}")
+        log(f"[blockparity] (b) {name}: {BLOCK_ITERS} iteration, median |c - c_rr| / "
+            f"|c_rr| = {one:.3e}" + (f" (limit {BLOCK_MODE_RTOL})" if held else
+                                     " (a reading)")
+            + f"; mean cost {float(m['cost'].mean()):.4f} against rr's "
+            f"{float(ref.mean()):.4f}")
         if held:
             assert one <= BLOCK_MODE_RTOL, f"blockparity: {name} off rr by {one:.3e}"
     # bf16's Riccati step at one shared state, card against CPU float64
@@ -1851,7 +1936,7 @@ def launches_of(fn):
     return sum(ev.count for ev in rows), sum(ev.self_device_time_total for ev in rows)
 
 
-def check_velocity_case(name, M, q, mask, z0):
+def check_velocity_case(name, M, q, mask, z0, verify=True):
     """Kernel against plain version on the table's LCPs, whose z is not
     unique (redundant contacts: the no-slip LCP is singular to working
     precision, so pivot ties are decided by rounding and a chain that ends
@@ -1860,12 +1945,19 @@ def check_velocity_case(name, M, q, mask, z0):
     problem with work is done in both when either is done on one, and where
     both are done the velocity change M·z they give agrees within
     KKT_VELOCITY_TOL (M·z is unique for these symmetric PSD matrices).
-    Returns the velocity error."""
+    `verify` goes to `both_versions`; with "as_plain" "done" reads "done and
+    complementary" here (on the mesh stack's singular stabilization LCPs the
+    two versions' done sets can be disjoint, every one of them failing
+    complementarity: there is then no solution to compare). Returns the
+    velocity error."""
     from moby_tpu_torch.solvers import lcp
 
-    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0)
+    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0, verify)
     n_diff = int((dk != dp).sum())
     work = mask.any(dim=1)
+    if verify == "as_plain":
+        dk = dk & verified(M, q, mask, zk)
+        dp = dp & verified(M, q, mask, zp)
     both = dk & dp & work
     assert bool(both.any()) or not bool(((dk | dp) & work).any()), (
         f"{name}: no problem with work is done in both versions")
@@ -1881,7 +1973,7 @@ def check_velocity_case(name, M, q, mask, z0):
     return err
 
 
-def check_qp_velocity_case(name, M, q, mask, z0, nv, solver="bpp", **kw):
+def check_qp_velocity_case(name, M, q, mask, z0, nv, solver="bpp", verify=True, **kw):
     """`bpp_lcp` against `bpp_lcp_plain` (or `ppm_lcp` against
     `ppm_lcp_plain`, `solver="ppm"`) on block-push's QP-KKT LCPs
     [[H, -Gᵀ], [G, 0]] (x = z[:nv] the QP's nonnegative impulse variables,
@@ -1898,12 +1990,16 @@ def check_qp_velocity_case(name, M, q, mask, z0, nv, solver="bpp", **kw):
     not held: whether a problem finishes is decided by rounding there, as a
     pivot of the singular system is exactly 0 in one elimination and about
     1e-17·‖M‖∞ in the other (tests/test_torch_mpc_single.py::
-    test_blockpush_float64_done_is_decided_by_rounding). Returns the largest
-    ratio of the difference to the bound."""
+    test_blockpush_float64_done_is_decided_by_rounding). `verify` goes to
+    `both_versions`; with "as_plain" H·x is compared where both versions are
+    done and complementary. Returns the largest ratio of the difference to
+    the bound."""
     from moby_tpu_torch.solvers import lcp
 
-    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0, solver=solver, **kw)
+    zk, dk, zp, dp, _ = both_versions(name, M, q, mask, z0, verify, solver=solver, **kw)
     both = dk & dp & mask.any(dim=1)
+    if verify == "as_plain":
+        both = both & verified(M, q, mask, zk) & verified(M, q, mask, zp)
     n_diff = int((dk != dp).sum())
     if solver == "ppm":
         # PPM's first-minimum rule meets the mirrored friction columns' ties
@@ -2191,38 +2287,34 @@ def phase_models(seed):
     return out
 
 
-def recorded_run(scene, st, n_steps, dt, on_step=None):
-    """`n_steps` steps of `stepper.step` on the card after a warm-up step,
-    with `ppm_lcp`'s count set to 0 just before and read just after, and
-    what the path handed the kernel recorded by LCP origin (the NQP's kappa
-    pre-solves, the QP, the no-slip MLCP, stabilization) beside the LCPs as
-    they entered `_solve_accel`, and one NQP problem for counting its
-    launches. `on_step(st)` runs after each step. Returns
-    (state, seconds, scenario-steps with an impact solve, recorded,
-    entered, nqp_args, launches)."""
-    from moby_tpu_torch.sim import impact, noslip, nqp, stabilization, stepper
+@contextlib.contextmanager
+def lcp_recording():
+    """While open, what the step hands `ppm_lcp` is recorded by LCP origin
+    (the NQP's kappa pre-solves, the QP, the no-slip MLCP, stabilization)
+    beside the LCPs as they entered `_solve_accel`, and one NQP problem is
+    kept for counting its launches; `ppm_lcp`'s count starts at 0. Yields a
+    dict: "recorded", "entered", "nqp_args", and "launches" once closed."""
+    from moby_tpu_torch.sim import impact, noslip, nqp, stabilization
     from moby_tpu_torch.solvers import hopper_lcp, lcp
 
-    stepper.step(scene, st, dt, device=DEVICE)        # warm-up, not counted
-    torch.cuda.synchronize()
-    recorded, entered, nqp_args = [], [], []
+    rec = {"recorded": [], "entered": [], "nqp_args": []}
     origin = {"lcp": "?"}
     saved = (hopper_lcp.ppm_lcp, lcp._solve_accel, nqp._kappa, nqp.solve_nqp,
              impact.resolve_impacts, noslip.solve_noslip, stabilization.stabilize)
     wrapper, accel, kappa, solve_nqp, resolve_qp, solve_ns, stab = saved
 
     def recording(M, q, mask, z0=None, max_piv=None):
-        recorded.append((origin["lcp"], M, q, mask, z0))
+        rec["recorded"].append((origin["lcp"], M, q, mask, z0))
         return wrapper(M, q, mask, z0=z0, max_piv=max_piv)
 
     def recording_accel(M, q, mask, z0, skip, plain_fallback):
         live = ~lcp._no_skip(skip, q)
-        entered.append((origin["lcp"], M, q, mask & live[:, None], z0))
+        rec["entered"].append((origin["lcp"], M, q, mask & live[:, None], z0))
         return accel(M, q, mask, z0, skip, plain_fallback)
 
     def keeping_nqp(*a, **kw):
-        if not nqp_args:
-            nqp_args.append((a, kw))
+        if not rec["nqp_args"]:
+            rec["nqp_args"].append((a, kw))
         return solve_nqp(*a, **kw)
 
     def tagged(tag, fn):
@@ -2242,23 +2334,38 @@ def recorded_run(scene, st, n_steps, dt, on_step=None):
     stabilization.stabilize = tagged("stabilization", stab)
     recording.launches = 0
     hopper_lcp.bpp_lcp.launches = 0
+    try:
+        yield rec
+    finally:
+        (hopper_lcp.ppm_lcp, lcp._solve_accel, nqp._kappa, nqp.solve_nqp,
+         impact.resolve_impacts, noslip.solve_noslip, stabilization.stabilize) = saved
+    rec["launches"] = recording.launches
+    assert hopper_lcp.bpp_lcp.launches == 0    # the step's cascade has no bpp_lcp stage
+    assert len(rec["recorded"]) == rec["launches"]
+
+
+def recorded_run(scene, st, n_steps, dt, on_step=None):
+    """`n_steps` steps of `stepper.step` on the card after a warm-up step,
+    with what the step hands `ppm_lcp` recorded (`lcp_recording`).
+    `on_step(st)` runs after each step. Returns (state, seconds,
+    scenario-steps with an impact solve, recorded, entered, nqp_args,
+    launches)."""
+    from moby_tpu_torch.sim import stepper
+
+    stepper.step(scene, st, dt, device=DEVICE)        # warm-up, not counted
+    torch.cuda.synchronize()
     solved = torch.zeros((), dtype=torch.int64, device=DEVICE)
     t0 = time.time()
-    try:
+    with lcp_recording() as rec:
         for _ in range(n_steps):
             st = stepper.step(scene, st, dt, device=DEVICE)
             solved += (st.solver_pivots > 0).sum()
             if on_step is not None:
                 on_step(st)
         torch.cuda.synchronize()
-    finally:
-        (hopper_lcp.ppm_lcp, lcp._solve_accel, nqp._kappa, nqp.solve_nqp,
-         impact.resolve_impacts, noslip.solve_noslip, stabilization.stabilize) = saved
     elapsed = time.time() - t0
-    launches = recording.launches
-    assert hopper_lcp.bpp_lcp.launches == 0    # the step's cascade has no bpp_lcp stage
-    assert len(recorded) == launches
-    return st, elapsed, int(solved), recorded, entered, nqp_args, launches
+    return (st, elapsed, int(solved), rec["recorded"], rec["entered"],
+            rec["nqp_args"], rec["launches"])
 
 
 def kernel_work(recorded):
@@ -2331,7 +2438,7 @@ def run_model(name, seed):
             "launches_a_step": k, "idle_share": 1.0 - us / 1e6 / (elapsed / n_steps)}
 
 
-def phase_kernels_models(models, qp_nv=None):
+def phase_kernels_models(models, qp_nv=None, verify=True):
     """`ppm_lcp` against `ppm_lcp_plain` on the LCPs the models' (or the
     geometry's) paths recorded — the NQP's kappa pre-solves, the mixed
     scene's QP islands and no-slip MLCPs, the chain's QP over the projected
@@ -2343,7 +2450,8 @@ def phase_kernels_models(models, qp_nv=None):
     configuration to its QP's variable count: its QP-KKT LCPs are then held
     by the QP's velocity change H·x (`check_qp_velocity_case`), since the
     curved solids' and polyhedra's coplanar contacts make H singular and the
-    multiplier rows of M·z not unique. Returns the largest z error."""
+    multiplier rows of M·z not unique. `verify` goes to both checks of the
+    LCPs as recorded (`both_versions`). Returns the largest z error."""
     from moby_tpu_torch.solvers import hopper_lcp
 
     worst = 0.0
@@ -2363,9 +2471,10 @@ def phase_kernels_models(models, qp_nv=None):
 
                 def check(label, M, q, mask, z0):
                     if nv is None:
-                        check_velocity_case(label, M, q, mask, z0)
+                        check_velocity_case(label, M, q, mask, z0, verify)
                     else:
-                        check_qp_velocity_case(label, M, q, mask, z0, nv, solver="ppm")
+                        check_qp_velocity_case(label, M, q, mask, z0, nv, solver="ppm",
+                                               verify=verify)
 
                 for (_, M, q, mask, z0) in handed:
                     check(f"{name} {who} as handed", cast(M), cast(q),
@@ -2611,43 +2720,52 @@ def geometry_config(name, device, B, seed, dtype=None):
 
 def run_geometry(name, seed):
     """GEOM_BATCH scenarios of one geometry configuration through
-    `stepper.step` on the card, float32: scenario-steps/s, the device's
-    busy share and launches of a step, the launches of one `narrow_phase`
-    call, `ppm_lcp`'s launches and calls with work."""
-    from moby_tpu_torch.geometry import narrowphase as nph
-    from moby_tpu_torch.sim import kinematics, stepper
+    `stepper.step` on the card, float32 (`run_config`)."""
     from moby_tpu_torch.solvers import hopper_lcp
 
-    B, n_steps = GEOM_BATCH, GEOM_STEPS[name]
-    scene, st = geometry_config(name, DEVICE, B, seed, torch.float32)
+    scene, st = geometry_config(name, DEVICE, GEOM_BATCH, seed, torch.float32)
+    rest = {"curved": [0.0, 0.5, 0.6, 0.25],
+            "octastack": [0.0, 0.5 / np.sqrt(3.0), 1.5 / np.sqrt(3.0)],
+            "platforms": [OCTA_REST_Z, 0.0, 1.5, 0.0]}[name]
+    out = run_config("geometry", name, scene, st, GEOM_STEPS[name], rest)
+    if name != "curved":
+        assert scene.n_lcp <= 160 and hopper_lcp.fits(scene.n_lcp, torch.float32)
+    return out
+
+
+def run_config(tag, name, scene, st, n_steps, rest, detail=""):
+    """`n_steps` steps of GEOM_BATCH scenarios of a configuration on the card
+    (`recorded_run`), every body at least `rest` (its centre height at rest,
+    by body) less 5 mm at the end: scenario-steps/s, the device's busy share
+    and launches of a step, the launches and device time of one
+    `narrow_phase` call, `ppm_lcp`'s launches and calls with work."""
+    from moby_tpu_torch.geometry import narrowphase as nph
+    from moby_tpu_torch.sim import kinematics, stepper
+
+    B = st.pos.shape[0]
     kinds = sorted({k for k, _ in scene.kind_groups})
     st, elapsed, solved, recorded, entered, _, launches = recorded_run(
         scene, st, n_steps, GEOM_DT)
     for f in ("pos", "quat", "vel", "omega"):
-        assert torch.isfinite(getattr(st, f)).all(), f"geometry {name}: {f} not finite"
-    assert solved > 0, f"geometry {name}: no impact was ever solved"
+        assert torch.isfinite(getattr(st, f)).all(), f"{tag} {name}: {f} not finite"
+    assert solved > 0, f"{tag} {name}: no impact was ever solved"
     z = st.pos[..., 2].double().cpu().numpy()
-    rest = {"curved": [0.0, 0.5, 0.6, 0.25],
-            "octastack": [0.0, 0.5 / np.sqrt(3.0), 1.5 / np.sqrt(3.0)],
-            "platforms": [OCTA_REST_Z, 0.0, 1.5, 0.0]}[name]
     low = (z - np.array(rest)).min(axis=0)
-    detail = (f"lowest centre of each body against its rest height "
-              f"{low.round(6).tolist()} m")
-    assert low.min() > -5e-3, f"geometry {name}: a body sank ({detail})"
-    if name != "curved":
-        assert scene.n_lcp <= 160 and hopper_lcp.fits(scene.n_lcp, torch.float32)
+    sank = (f"lowest centre of each body against its rest height "
+            f"{low.round(6).tolist()} m")
+    assert low.min() > -5e-3, f"{tag} {name}: a body sank ({sank})"
     calls_with_work, with_work = kernel_work(recorded)
     rate = B * n_steps / elapsed
-    log(f"[geometry] {name}: kinds {kinds}, B={B} steps={n_steps} dt={GEOM_DT} "
-        f"float32, K={scene.n_contacts} n_lcp={scene.n_lcp}: {elapsed:.2f} s, "
+    log(f"[{tag}] {name}: kinds {kinds}, B={B} steps={n_steps} dt={GEOM_DT} "
+        f"float32, K={scene.n_contacts} n_lcp={scene.n_lcp}{detail}: {elapsed:.2f} s, "
         f"{rate:.1f} scenario-steps/s; scenario-steps with an impact solve "
-        f"{solved} of {B * n_steps}; {detail}")
-    log(f"[geometry] {name}: ppm_lcp launches={launches} ({launches / n_steps:.2f} a "
+        f"{solved} of {B * n_steps}; {sank}")
+    log(f"[{tag}] {name}: ppm_lcp launches={launches} ({launches / n_steps:.2f} a "
         f"step), calls with work={calls_with_work}, problems with work by LCP={with_work}")
     k, us = launches_of(lambda: stepper.step(scene, st, GEOM_DT, device=DEVICE))
     pt = kinematics.compute(scene, st)
     knp, usnp = launches_of(lambda: nph.narrow_phase(scene, pt.pos, pt.quat, 1e-3))
-    log(f"[geometry] {name}: device busy {us / 1e3:.2f} ms of a "
+    log(f"[{tag}] {name}: device busy {us / 1e3:.2f} ms of a "
         f"{elapsed / n_steps * 1e3:.2f} ms step (idle share "
         f"{1.0 - us / 1e6 / (elapsed / n_steps):.3f}), {k} kernel launches a step; "
         f"one narrow_phase call {knp} launches, {usnp / 1e3:.3f} ms of device time")
@@ -2656,7 +2774,7 @@ def run_geometry(name, seed):
             "problems_with_work": with_work, "nqp_launches": None,
             "n_vars": scene.n_vars, "launches_a_step": k,
             "narrow_phase_launches": knp,
-            "idle_share": 1.0 - us / 1e6 / (elapsed / n_steps)}
+            "idle_share": 1.0 - us / 1e6 / (elapsed / n_steps), "state": st}
 
 
 def phase_geometry(seed):
@@ -2759,10 +2877,6 @@ def phase_geometry_parity(seed):
     of 0.65 m. Then the regress CLI on an XML scene of the four primitive
     tags written into a temporary directory, GEOM_REGRESS_STEPS steps on the
     card and with --cpu, compared within REGRESS_TOL."""
-    import tempfile
-
-    from moby_tpu_torch.cli import compare, regress
-
     drifts = {}
     for name in GEOMETRY_SCENES:
         t0 = time.time()
@@ -2802,24 +2916,472 @@ def phase_geometry_parity(seed):
             assert ok, f"geometryparity {name}: {what}"
         assert drift < GEOM_DRIFT_LIMIT[name], f"geometryparity {name}: drift {drift:.3e}"
 
+    regress_card_against_cpu("geometryparity", write_shapes_scene,
+                             "the shapes scene (Cylinder, Cone, Torus, Polyhedron from an OBJ)")
+    return drifts
+
+
+def regress_card_against_cpu(tag, write_scene, label):
+    """The regress CLI on the scene `write_scene(directory)` writes into a
+    temporary directory, GEOM_REGRESS_STEPS steps on the card and with
+    --cpu, compared by `compare` within REGRESS_TOL."""
+    import tempfile
+
+    from moby_tpu_torch.cli import compare, regress
+
     with tempfile.TemporaryDirectory() as tmp:
-        path = write_shapes_scene(tmp)
+        path = write_scene(tmp)
         dumps, secs = {}, {}
         for mode in ("card", "cpu"):
-            dumps[mode] = os.path.join(tmp, f"shapes.{mode}.dat")
+            dumps[mode] = os.path.join(tmp, f"scene.{mode}.dat")
             argv = [f"-s={GEOM_DT}", f"-mi={GEOM_REGRESS_STEPS}", path, dumps[mode]]
             t0 = time.time()
             assert regress.main(argv + (["--cpu"] if mode == "cpu" else [])) == 0
             secs[mode] = time.time() - t0
         err, where, n = compare.compare(dumps["cpu"], dumps["card"])
-        log(f"[geometryparity] regress of the shapes scene (Cylinder, Cone, Torus, "
-            f"Polyhedron from an OBJ): {n} lines, card float32 against --cpu float64 "
+        log(f"[{tag}] regress of {label}: {n} lines, card float32 against --cpu float64 "
             f"L-inf {err:.3e} (worst at line, column {where}; limit {REGRESS_TOL:.0e}); "
             f"card {secs['card']:.1f} s, CPU {secs['cpu']:.1f} s")
-        assert n == GEOM_REGRESS_STEPS, f"geometryparity regress: {n} lines"
+        assert n == GEOM_REGRESS_STEPS, f"{tag} regress: {n} lines"
         assert compare.main([dumps["cpu"], dumps["card"], str(REGRESS_TOL)]) == 0, (
-            f"geometryparity regress: {err:.3e}")
-    return drifts
+            f"{tag} regress: {err:.3e}")
+
+
+# ----------------------------------------------------------- triangle meshes
+# the JAX package's mesh tests' polygons (tests/test_trimesh.py:128-162):
+# the non-convex L and the V-notch channel, in the xz plane
+L_POLY = [(0, 0), (2, 0), (2, 1), (1, 1), (1, 2), (0, 2)]
+NOTCH_POLY = [(0.0, -0.3), (1.0, 0.5), (1.0, -0.8), (-1.0, -0.8), (-1.0, 0.5)]
+# local y -> world z (the extruded slab's thickness axis up)
+Q_Y_UP = np.array([S2, 0.0, 0.0, S2])
+
+
+def cube_mesh(h):
+    """tests/test_trimesh.py:22: a cube of half-size h as 12 outward triangles."""
+    v = np.array([[-h, -h, -h], [h, -h, -h], [h, h, -h], [-h, h, -h],
+                  [-h, -h, h], [h, -h, h], [h, h, h], [-h, h, h]], np.float64)
+    f = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4],
+                  [2, 3, 7], [2, 7, 6], [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]],
+                 np.int32)
+    return v, f
+
+
+def icosphere(subdiv, r):
+    """tests/test_trimesh_scale.py:15-48: a subdivided icosahedron of
+    20·4^subdiv faces, its icosahedron's hull from the port's
+    `geometry.hull`."""
+    from moby_tpu_torch.geometry import hull
+
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    v = []
+    for s1 in (-1, 1):
+        for s2 in (-1, 1):
+            v += [(0, s1, s2 * phi), (s1, s2 * phi, 0), (s2 * phi, 0, s1)]
+    v = np.array(v, float)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    verts, faces = hull.convex_hull(v)
+    for _ in range(subdiv):
+        edge_mid, new_faces, vlist = {}, [], list(verts)
+
+        def mid(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in edge_mid:
+                m = vlist[i] + vlist[j]
+                edge_mid[key] = len(vlist)
+                vlist.append(m / np.linalg.norm(m))
+            return edge_mid[key]
+
+        for (a, b, c) in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            new_faces += [[a, ab, ca], [ab, b, bc], [ca, bc, c], [ab, bc, ca]]
+        verts, faces = np.array(vlist), np.array(new_faces, np.int32)
+    return verts * r, faces
+
+
+def _port_scene():
+    from moby_tpu_torch.core import scene
+
+    return scene
+
+
+def _mesh_body(b, sc, name, verts, faces, pos, quat=None):
+    """A dynamic mesh body of GEOM_MASS, its inertia from the mesh."""
+    from moby_tpu_torch.geometry import trimesh
+
+    J = trimesh.mesh_inertia(GEOM_MASS, verts, faces)[0]
+    b.add_body(name, mass=GEOM_MASS, inertia=J, pos=np.asarray(pos, float), quat=quat)
+    b.add_geom(name, sc.TRIMESH, [0.0], verts=verts, faces=faces)
+
+
+def _apart(b, islands):
+    for i, a in enumerate(islands):
+        for c in islands[i + 1:]:
+            for x in a:
+                for y in c:
+                    b.disabled_pairs.add(tuple(sorted((x, y))))
+
+
+def make_meshes(sc=None):
+    """The L-prism of tests/test_trimesh.py:128-136 (extrude_polygon,
+    non-convex) on the plane (kind 3), and 10 m away a sphere (r=0.3) in
+    the V-notch channel of tests/test_trimesh.py:152-162 (kind 11, two
+    faces at once); the pairs between the two islands disabled. K = 12 + 4,
+    n = 128."""
+    sc = sc or _port_scene()
+    from moby_tpu_torch.geometry import trimesh
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    lv, lf = trimesh.extrude_polygon(L_POLY, -0.5, 0.5, apex=0)
+    com = trimesh.mesh_inertia(GEOM_MASS, lv, lf)[1]
+    _mesh_body(b, sc, "L", lv - com, lf, [0.0, 0.0, com[2]])
+    nv, nf = trimesh.extrude_polygon(NOTCH_POLY, -1.0, 1.0, apex=0)
+    b.add_body("channel", enabled=False, pos=np.array([10.0, 0.0, 0.0]))
+    b.add_geom("channel", sc.TRIMESH, [0.0], verts=nv, faces=nf)
+    b.add_body("ball", mass=GEOM_MASS, inertia=sc.sphere_inertia(GEOM_MASS, 0.3),
+               pos=np.array([10.0, 0.0, 0.3 * np.sqrt(1.64) - 0.3]))
+    b.add_geom("ball", sc.SPHERE, [0.3])
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5)
+    b.set_contact_params("ground", "L", cp)
+    b.set_contact_params("channel", "ball", cp)
+    _apart(b, [["ground", "L"], ["channel", "ball"]])
+    return b
+
+
+def make_meshstack(sc=None):
+    """Two mesh cubes (cube_mesh(0.4), tests/test_trimesh.py:193) stacked on
+    the plane (kinds 3 and 13). The upper cube's pair with the plane, 0.8 m
+    apart through the run, is disabled: its 8 slots would make n = 192,
+    past `ppm_lcp`'s float32 gate. K = 8 + 8, n = 128."""
+    sc = sc or _port_scene()
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    v, f = cube_mesh(0.4)
+    _mesh_body(b, sc, "m1", v, f, [0.0, 0.0, 0.4])
+    _mesh_body(b, sc, "m2", v, f, [0.0, 0.0, 1.2])
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5)
+    b.set_contact_params("ground", "m1", cp)
+    b.set_contact_params("m1", "m2", cp)
+    b.disabled_pairs.add(("ground", "m2"))
+    return b
+
+
+def make_meshplatforms(sc=None):
+    """A mesh cube (cube_mesh(0.4)) on an analytic BOX platform
+    (tests/test_trimesh.py:175-191; kind 12). K = 8 + 8 (its vertices and
+    the BOX's corners), n = 128."""
+    sc = sc or _port_scene()
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("box", enabled=False)
+    b.add_geom("box", sc.BOX, [1.0, 1.0, 0.5])
+    v, f = cube_mesh(0.4)
+    _mesh_body(b, sc, "mesh", v, f, [0.0, 0.0, 0.9])
+    b.set_contact_params("box", "mesh", sc.ContactParams(epsilon=0.0, mu_coulomb=0.5))
+    return b
+
+
+def make_meshslabs(sc=None):
+    """A mesh cube (cube_mesh(0.3)) on a POLYHEDRON slab
+    (tests/test_trimesh.py:214-235; kind 13 through the slab's hull
+    triangles), and 10 m away the 320-face icosphere (subdivided twice,
+    r=0.4) on the extruded mesh slab of tests/test_trimesh_scale.py:74-98
+    (kind 13, F > FACE_CHUNK: the face-tiled loop), its thickness axis
+    turned up. K = 8 + 8, n = 128."""
+    sc = sc or _port_scene()
+    from moby_tpu_torch.geometry import trimesh
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    slab = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-0.2, 0.2)],
+                    np.float64)
+    b.add_body("pslab", enabled=False)
+    b.add_geom("pslab", sc.POLYHEDRON, [0.0], verts=slab)
+    v, f = cube_mesh(0.3)
+    _mesh_body(b, sc, "cube", v, f, [0.0, 0.0, 0.5])
+    sv, sf = trimesh.extrude_polygon(
+        np.array([[-2.0, -2.0], [2.0, -2.0], [2.0, 2.0], [-2.0, 2.0]]), -0.25, 0.25)
+    b.add_body("mslab", enabled=False, pos=np.array([10.0, 0.0, 0.0]), quat=Q_Y_UP)
+    b.add_geom("mslab", sc.TRIMESH, [0.0], verts=sv, faces=sf)
+    iv, if_ = icosphere(2, 0.4)
+    _mesh_body(b, sc, "ico", iv, if_, [10.0, 0.0, 0.25 + 0.4])
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5)
+    b.set_contact_params("pslab", "cube", cp)
+    b.set_contact_params("mslab", "ico", cp)
+    _apart(b, [["pslab", "cube"], ["mslab", "ico"]])
+    return b
+
+
+def make_bigmesh(sc=None):
+    """The 1,280-face icosphere (subdivided three times, r=0.5,
+    tests/test_trimesh_scale.py:15-48) on the plane (kind 3): its 642
+    vertices are capped at VSLOT_CAP = 16 slots, the deepest by the contact
+    slots' top-k, whose ring of vertices about the lowest one ties in depth.
+    K = 16, n = 128."""
+    sc = sc or _port_scene()
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    iv, if_ = icosphere(3, 0.5)
+    _mesh_body(b, sc, "ico", iv, if_, [0.0, 0.0, 0.5])
+    b.set_contact_params("ground", "ico", sc.ContactParams(epsilon=0.0, mu_coulomb=0.5))
+    return b
+
+
+# four mesh configurations in five scenes: one impact LCP covers
+# a scene and `ppm_lcp` takes n <= 160 in float32 (`hopper_lcp.fits`); the
+# mesh cube on the BOX platform (K = 16) beside the cube on the polyhedron
+# slab (K = 8), or the big icosphere on the plane (K = 16) beside the small
+# one on the mesh slab (K = 8), would make n = 192
+MESH_SCENES = {"meshes": make_meshes, "meshstack": make_meshstack,
+               "meshplatforms": make_meshplatforms, "meshslabs": make_meshslabs,
+               "bigmesh": make_bigmesh}
+# each body's centre height at rest, by body (the static ones at their place)
+MESH_REST_Z = {"meshes": [0.0, 5.0 / 6.0, 0.0, 0.3 * np.sqrt(1.64) - 0.3],
+               "meshplatforms": [0.0, 0.9], "meshslabs": [0.0, 0.5, 0.0, 0.65],
+               "bigmesh": [0.0, 0.5]}
+
+
+# steps of each parity run: the stack takes ~0.7 s a step in CPU float64
+# and 21-35 s on the card at B=4 in float32 (its LCPs go to the plain
+# cascade, MESH_TIMED)
+MESH_PARITY_STEPS = {"meshes": 20, "meshstack": 2, "meshplatforms": 20,
+                     "meshslabs": 20, "bigmesh": 20}
+
+
+def mesh_config(name, device, B, seed, dtype=None):
+    """(scene, state of B scenarios) of a mesh configuration: every enabled
+    body lifted by numpy-made jitter in [0, GEOM_LIFT) from `seed` (the
+    stack's upper cube by its own and the lower one's) and moving down at
+    GEOM_DROP."""
+    scene, st = MESH_SCENES[name]().compile(device=device, dtype=dtype)
+    nb = st.pos.shape[1]
+    en = scene.host["enabled"][None, :]
+    dz = np.random.default_rng(seed).uniform(0.0, GEOM_LIFT, size=(B, nb)) * en
+    if name == "meshstack":
+        dz[:, 2] += dz[:, 1]
+    st = st.expand(B)
+    pos, vel = st.pos.clone(), st.vel.clone()
+    pos[:, :, 2] += torch.tensor(dz, dtype=pos.dtype, device=pos.device)
+    vel[:, :, 2] -= torch.tensor(GEOM_DROP * en, dtype=vel.dtype, device=vel.device)
+    return scene, st.replace(pos=pos, vel=vel)
+
+
+# the configurations the trimesh phase steps at GEOM_BATCH, and their timed
+# steps (after one untimed step). On the card (NVIDIA H100 80GB HBM3, 700 W)
+# the stack took 19.4 s a step over 8 steps and 165.7 s in a 1-step run
+# (199,437-273,465 launches a step): its singular float32 LCPs fall through
+# batched BPP and `ppm_lcp` to the plain cascade, one host synchronisation
+# per pivot (`scripts/geometry_float32.py meshlcp`), so it runs in
+# trimeshparity alone (whose card run records its LCPs for the kernels
+# phase). The slabs' time is their first step's, whose impact QPs the plain
+# cascade finishes: 8 timed steps took 23.3 s, 4 20.5-25.4 s, 2 23.9 s
+MESH_TIMED = ("meshes", "meshplatforms", "meshslabs", "bigmesh")
+MESH_STEPS = {"meshes": 8, "meshplatforms": 8, "meshslabs": 8, "bigmesh": 8}
+# 5x the largest position drift of the port's CPU float32 run against its
+# CPU float64 run of the same configuration, B=4, seed 1, MESH_PARITY_STEPS
+# (20 steps, the stack 2; `scripts/geometry_float32.py mesh`): 8.847e-4,
+# 7.482e-4, 6.905e-4, 6.931e-4, 6.905e-4
+MESH_DRIFT_LIMIT = {"meshes": 4.42e-3, "meshstack": 3.74e-3, "meshplatforms": 3.45e-3,
+                    "meshslabs": 3.47e-3, "bigmesh": 3.45e-3}
+
+
+def run_mesh(name, seed):
+    """GEOM_BATCH scenarios of one mesh configuration through `stepper.step`
+    on the card, float32 (`run_config`), and the peak device memory of the
+    run and of one `narrow_phase` call: the closest-face intermediates are
+    the meshes' largest tensors."""
+    from moby_tpu_torch.core import scene as sc
+    from moby_tpu_torch.geometry import narrowphase as nph
+    from moby_tpu_torch.sim import kinematics
+    from moby_tpu_torch.solvers import hopper_lcp
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()      # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    scene, st = mesh_config(name, DEVICE, GEOM_BATCH, seed, torch.float32)
+    assert scene.n_lcp <= 160 and hopper_lcp.fits(scene.n_lcp, torch.float32), (
+        f"trimesh {name}: n = {scene.n_lcp} is past ppm_lcp's gate")
+    out = run_config("trimesh", name, scene, st, MESH_STEPS[name], MESH_REST_Z[name],
+                     f" vmax={scene.vmax} fmax={scene.geom_faces.shape[1]}")
+    peak = torch.cuda.max_memory_allocated() - mem0
+    pt = kinematics.compute(scene, out["state"])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nph.narrow_phase(scene, pt.pos, pt.quat, 1e-3)
+    np_peak = torch.cuda.max_memory_allocated() - base
+    log(f"[trimesh] {name}: peak device memory {peak / 2 ** 20:.1f} MiB above the "
+        f"{mem0 / 2 ** 20:.1f} MiB held before the scene was built (the recorded LCPs "
+        f"included); one narrow_phase call {np_peak / 2 ** 20:.1f} MiB above what was "
+        f"allocated")
+    if name == "bigmesh":
+        slots = scene.host["pair_kind"][scene.host["slot_pair"]] == sc.K_PLANE_GENERIC
+        assert slots.sum() == sc.VSLOT_CAP
+    out["peak_mib"] = peak / 2 ** 20
+    return out
+
+
+def phase_mesh(seed):
+    """The triangle-mesh configurations at full width (MESH_TIMED)."""
+    return {name: run_mesh(name, seed) for name in MESH_TIMED}
+
+
+def mesh_parity_run(name, device, seed, dtype=None, record=False):
+    """Positions (steps, B, nb, 3) of a mesh configuration at
+    GEOM_PARITY_BATCH on `device` (float32 on the card, float64 on the CPU
+    unless `dtype` says otherwise), the most active slots any plane pair
+    had after a step, and (with `record`, on the card) what the steps handed
+    `ppm_lcp` (`lcp_recording`), else None."""
+    from moby_tpu_torch.core import scene as sc
+    from moby_tpu_torch.geometry import narrowphase as nph
+    from moby_tpu_torch.sim import kinematics, stepper
+
+    scene, st = mesh_config(name, device, GEOM_PARITY_BATCH, seed, dtype)
+    plane_slots = torch.as_tensor(
+        scene.host["pair_kind"][scene.host["slot_pair"]] == sc.K_PLANE_GENERIC,
+        device=st.pos.device)
+    pos, most = [], 0
+    threads = torch.get_num_threads()
+    if device == "cpu":
+        torch.set_num_threads(1)       # B=4: more threads only synchronise
+    try:
+        with lcp_recording() if record else contextlib.nullcontext() as rec:
+            for _ in range(MESH_PARITY_STEPS[name]):
+                st = stepper.step(scene, st, GEOM_DT, device=device)
+                pos.append(st.pos)
+                pt = kinematics.compute(scene, st)
+                _, con = nph.narrow_phase(scene, pt.pos, pt.quat,
+                                          scene.contact_dist_thresh)
+                most = max(most, int((con.active & plane_slots).sum(dim=1).max()))
+    finally:
+        torch.set_num_threads(threads)
+    if rec is not None:
+        rec["n_vars"] = scene.n_vars
+    return torch.stack(pos).double().cpu(), most, rec
+
+
+def merged_calls(calls):
+    """Recorded LCP calls [(origin, M, q, mask, z0), ...] with work, each
+    origin's merged into one batch (a missing z0 as zeros, which `ppm_lcp`
+    reads as a cold start, as it reads None)."""
+    out = []
+    for who in sorted({c[0] for c in calls}):
+        mine = [c for c in calls if c[0] == who and bool(c[3].any())]
+        if not mine:
+            continue
+        assert len({c[1].shape[1:] for c in mine}) == 1, f"{who}: LCP sizes differ"
+        out.append((who, torch.cat([c[1] for c in mine]), torch.cat([c[2] for c in mine]),
+                    torch.cat([c[3] for c in mine]),
+                    torch.cat([torch.zeros_like(c[2]) if c[4] is None else c[4]
+                               for c in mine])))
+    return out
+
+
+_MESH_XML = """<XML>
+<DRIVER step-size="0.001" />
+<MOBY>
+  <TriangleMesh id="lm" filename="l.obj" density="2.0" />
+  <TriangleMesh id="cm" filename="cube.obj" center="false" mass="1.5" />
+  <TriangleMeshInline id="tet" vertices="0 0 0  0.4 0 0  0 0.4 0  0 0 0.4"
+      faces="0 2 1  0 1 3  0 3 2  1 2 3" mass="1.2" />
+  <Plane id="p" />
+  <GravityForce id="g" accel="0 0 -9.81" />
+  <RigidBody id="L" position="0 0 0.8335">
+    <InertiaFromPrimitive primitive-id="lm" /><CollisionGeometry primitive-id="lm" />
+  </RigidBody>
+  <RigidBody id="cube" position="4 0 0.4002">
+    <InertiaFromPrimitive primitive-id="cm" /><CollisionGeometry primitive-id="cm" />
+  </RigidBody>
+  <RigidBody id="tet" position="8 0 0.0002">
+    <InertiaFromPrimitive primitive-id="tet" /><CollisionGeometry primitive-id="tet" />
+  </RigidBody>
+  <RigidBody id="ground" enabled="false"><CollisionGeometry primitive-id="p" /></RigidBody>
+  <TimeSteppingSimulator>
+    <DynamicBody dynamic-body-id="L" /><DynamicBody dynamic-body-id="cube" />
+    <DynamicBody dynamic-body-id="tet" /><DynamicBody dynamic-body-id="ground" />
+    <RecurrentForce recurrent-force-id="g" />
+    <ContactParameters object1-id="ground" object2-id="L" mu-coulomb="0.5" epsilon="0" />
+    <ContactParameters object1-id="ground" object2-id="cube" mu-coulomb="0.5" epsilon="0" />
+    <ContactParameters object1-id="ground" object2-id="tet" mu-coulomb="0.5" epsilon="0" />
+    <DisabledPair object1-id="L" object2-id="cube" />
+    <DisabledPair object1-id="L" object2-id="tet" />
+    <DisabledPair object1-id="cube" object2-id="tet" />
+  </TimeSteppingSimulator>
+</MOBY></XML>"""
+
+
+def _obj_text(verts, faces):
+    return "".join(f"v {float(x)!r} {float(y)!r} {float(z)!r}\n" for x, y, z in verts) + "".join(
+        f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces)
+
+
+def write_mesh_scene(directory):
+    """A Moby XML scene of the mesh tags, its OBJs beside it: the L-prism as
+    a <TriangleMesh> centred on its COM (its mass from `density`), a cube as
+    a <TriangleMesh> with center="false" 0.1 m off its origin, and a
+    tetrahedron as a <TriangleMeshInline>, each 0.2 mm above one plane, their
+    mutual pairs disabled. Returns the scene's path."""
+    from moby_tpu_torch.geometry import trimesh
+
+    lv, lf = trimesh.extrude_polygon(L_POLY, -0.5, 0.5)
+    with open(os.path.join(directory, "l.obj"), "w") as f:
+        f.write(_obj_text(lv + [0.3, 0.0, 0.0], lf))
+    cv, cf = cube_mesh(0.4)
+    with open(os.path.join(directory, "cube.obj"), "w") as f:
+        f.write(_obj_text(cv + [0.1, 0.0, 0.0], cf))
+    path = os.path.join(directory, "meshes.xml")
+    with open(path, "w") as f:
+        f.write(_MESH_XML)
+    return path
+
+
+def phase_mesh_parity(seed):
+    """Card float32 against the port on the CPU in float64 for every mesh
+    configuration at GEOM_PARITY_BATCH over MESH_PARITY_STEPS: no NaN, the
+    largest position drift within MESH_DRIFT_LIMIT, and no plane pair with
+    more active slots than VSLOT_CAP (the big icosphere's 642 vertices);
+    then the regress CLI on an XML scene of the mesh tags written into a
+    temporary directory, GEOM_REGRESS_STEPS steps on the card and with --cpu,
+    compared within REGRESS_TOL. The stack's card run records what it hands
+    `ppm_lcp` (MESH_TIMED: it has no timed run), each LCP origin's calls
+    merged into one batch. Returns that record, as `phase_kernels_models`
+    reads it."""
+    from moby_tpu_torch.core import scene as sc
+
+    stack = None
+    for name in MESH_SCENES:
+        t0 = time.time()
+        pc, most_c, rec = mesh_parity_run(name, DEVICE, seed + 1,
+                                          record=name == "meshstack")
+        t1 = time.time()
+        pr, most_r, _ = mesh_parity_run(name, "cpu", seed + 1)
+        drift = float((pc - pr).abs().max())
+        log(f"[trimeshparity] {name}: B={GEOM_PARITY_BATCH} steps="
+            f"{MESH_PARITY_STEPS[name]}: max position drift {drift:.3e} (limit "
+            f"{MESH_DRIFT_LIMIT[name]:.2e}); most active slots of a plane pair card "
+            f"{most_c}, CPU {most_r} (cap {sc.VSLOT_CAP}); card {t1 - t0:.1f} s, CPU "
+            f"{time.time() - t1:.1f} s")
+        assert torch.isfinite(pc).all(), f"trimeshparity {name}: not finite"
+        assert max(most_c, most_r) <= sc.VSLOT_CAP, f"trimeshparity {name}: {most_c} slots"
+        assert drift < MESH_DRIFT_LIMIT[name], f"trimeshparity {name}: drift {drift:.3e}"
+        if rec is not None:
+            calls, with_work = kernel_work(rec["recorded"])
+            log(f"[trimeshparity] {name}: ppm_lcp launches={rec['launches']}, calls "
+                f"with work={calls}, problems with work by LCP={with_work}")
+            stack = {"recorded": merged_calls(rec["recorded"]),
+                     "entered": merged_calls(rec["entered"]), "n_vars": rec["n_vars"]}
+
+    regress_card_against_cpu("trimeshparity", write_mesh_scene,
+                             "the mesh scene (TriangleMesh from two OBJs, TriangleMeshInline)")
+    return stack
 
 
 def phase_regress():
@@ -3300,12 +3862,27 @@ def main():
         max_err = max(max_err, phase_kernels_models(
             geometry, {k: r["n_vars"] for k, r in geometry.items()}))
         lap("kernels on the geometry's LCPs")
+    mesh = phase_mesh(args.seed) if "trimesh" in phases else None
+    lap("trimesh")
+    stack = phase_mesh_parity(args.seed) if "trimeshparity" in phases else None
+    lap("trimeshparity")
+    if mesh is not None and "kernels" in phases:
+        max_err = max(max_err, phase_kernels_models(
+            mesh, {k: r["n_vars"] for k, r in mesh.items()}))
+    if stack is not None and "kernels" in phases:
+        # its singular float32 LCPs: done may fail complementarity where the
+        # plain version's does (`both_versions`)
+        max_err = max(max_err, phase_kernels_models(
+            {"meshstack": stack}, {"meshstack": stack["n_vars"]}, verify="as_plain"))
+    lap("kernels on the meshes' LCPs")
     full_run = set(phases) == set(PHASES)
     entries = []
     table_path = measure_art_kernel(art) if art is not None else None
     models_path = measure_models_kernel(models) if models is not None else None
     geometry_path = (measure_models_kernel(geometry, "the geometry's")
                      if geometry is not None else None)
+    mesh_path = (measure_models_kernel(mesh, "the meshes'")
+                 if mesh is not None else None)
     if recorded:
         entry = measure_kernel(recorded, launches, max_err)
         # the step's, the table's and each model's runs, each counted from 0
@@ -3321,12 +3898,17 @@ def main():
             entry["launches_by_path"].update(
                 {f"geometry:{k}": r["launches"] for k, r in geometry.items()})
             entry["geometry_path"] = geometry_path
+        if mesh_path is not None:
+            entry["launches_by_path"].update(
+                {f"trimesh:{k}": r["launches"] for k, r in mesh.items()})
+            entry["mesh_path"] = mesh_path
         entry["launches"] = sum(entry["launches_by_path"].values())
         entries.append(entry)
     else:
         for label, path in (("the table path", table_path),
                             ("the models' paths", models_path),
-                            ("the geometry's paths", geometry_path)):
+                            ("the geometry's paths", geometry_path),
+                            ("the meshes' paths", mesh_path)):
             if path is not None:
                 log(f"[timing] ppm_lcp on {label}: {json.dumps(path)}")
     block_path = measure_block_kernel(block) if block is not None else None
@@ -3349,6 +3931,8 @@ def main():
             "a path of the other contact models never launched ppm_lcp")
         assert all(r["launches"] > 0 for r in geometry.values()), (
             "a geometry path never launched ppm_lcp")
+        assert all(r["launches"] > 0 for r in mesh.values()), (
+            "a mesh path never launched ppm_lcp")
         assert block["launches"] > 0, "the block-push path never launched bpp_lcp"
     lap("timing")
     if entries:
@@ -3361,7 +3945,9 @@ def main():
         f"models' scenario-steps/s at B={MODELS_BATCH}: "
         f"{None if models is None else {k: round(r['rate'], 1) for k, r in models.items()}}; "
         f"geometry's scenario-steps/s at B={GEOM_BATCH}: "
-        f"{None if geometry is None else {k: round(r['rate'], 1) for k, r in geometry.items()}}")
+        f"{None if geometry is None else {k: round(r['rate'], 1) for k, r in geometry.items()}}; "
+        f"meshes' scenario-steps/s at B={GEOM_BATCH}: "
+        f"{None if mesh is None else {k: round(r['rate'], 1) for k, r in mesh.items()}}")
     log(card)
     if not full_run:
         log(f"partial run (phases: {phases}): no result line")

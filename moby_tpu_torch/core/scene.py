@@ -20,16 +20,18 @@ fixed-shape tensors shared by every scenario of a batch:
 :class:`State` carries the batch: every field has a leading ``B``.
 
 The port covers free bodies and articulated bodies with SPHERE, PLANE, BOX,
-CYLINDER, CONE, TORUS and POLYHEDRON (convex vertex cloud) geometry in the
-narrow-phase kinds 0-6, 9 and 10, joint limits, bilateral (gear, point and
-planar) constraints and compliant bodies. Pair pooling, heightmaps, triangle
-meshes, the support-function pairs (kinds >= 100, e.g. cylinder-sphere) and
-plugin kernels are accepted by `SceneBuilder`'s methods and refused by
+CYLINDER, CONE, TORUS, POLYHEDRON (convex vertex cloud) and TRIMESH
+(triangle mesh) geometry in the narrow-phase kinds 0-6 and 9-13, joint
+limits, bilateral (gear, point and planar) constraints and compliant bodies.
+Pair pooling, heightmaps, the support-function pairs (kinds >= 100, e.g.
+cylinder-sphere, and a mesh against a curved solid, kinds >= 400) and plugin
+kernels are accepted by `SceneBuilder`'s methods and refused by
 ``compile()`` with a ``NotImplementedError`` that names the pair or the
 feature. The convex hulls of BOX and POLYHEDRON geometry are computed at
-compile by the repo's native quickhull (`geometry.hull`). The heightmap grid
-tables of the JAX ``Scene`` (``hm_heights``, ``hm_size``) have no consumer
-yet and are not carried.
+compile by the repo's native quickhull (`geometry.hull`); a POLYHEDRON's
+hull triangles let it meet a mesh through the mesh-mesh kind. The heightmap
+grid tables of the JAX ``Scene`` (``hm_heights``, ``hm_size``) have no
+consumer yet and are not carried.
 
 Index tables are int64 (PyTorch's indexing type) where the JAX package uses
 int32; values are equal.
@@ -65,7 +67,8 @@ _GEOM_NAMES = {
     CONE: "CONE", TORUS: "TORUS", HEIGHTMAP: "HEIGHTMAP",
     POLYHEDRON: "POLYHEDRON", NONE: "NONE", TRIMESH: "TRIMESH",
 }
-_PORTED_GEOMS = frozenset({SPHERE, PLANE, BOX, CYLINDER, CONE, TORUS, POLYHEDRON})
+_PORTED_GEOMS = frozenset({SPHERE, PLANE, BOX, CYLINDER, CONE, TORUS, POLYHEDRON,
+                           TRIMESH})
 
 # narrow-phase kind codes (mirrors CCD::find_contacts dispatch,
 # include/Moby/CCD.inl:3-81); same values as the JAX package
@@ -80,9 +83,9 @@ K_SPHERE_HEIGHTMAP = 7   # A=sphere, B=heightmap (not ported)
 K_VERTS_HEIGHTMAP = 8    # A=vertex solid, B=heightmap (not ported)
 K_CONVEX_CONVEX = 9      # A,B convex clouds: GJK + MTV manifold, 8 slots
 K_CONE_PLANE = 10        # A=cone, B=plane, 4 slots
-K_SPHERE_TRIMESH = 11    # A=sphere, B=triangle mesh (not ported)
-K_TRIMESH_CONVEX = 12    # A=trimesh, B=box (not ported)
-K_TRIMESH_TRIMESH = 13   # A,B trimeshes (not ported)
+K_SPHERE_TRIMESH = 11    # A=sphere, B=triangle mesh, 4 slots
+K_TRIMESH_CONVEX = 12    # A=trimesh, B=box: verts-vs-box + corners-vs-mesh
+K_TRIMESH_TRIMESH = 13   # A,B trimeshes (a POLYHEDRON by its hull), 8 slots
 # the support-function kinds of the JAX package (not ported): convex pair
 # K_SUPPORT_BASE + ta*16 + tb, curved convex vs heightmap K_SUPPORT_HM_BASE +
 # ta, triangle mesh vs curved convex K_SUPPORT_TM_BASE + tb
@@ -98,6 +101,7 @@ _SKIP = "skip"
 _PORTED_KINDS = frozenset({
     K_SPHERE_SPHERE, K_SPHERE_PLANE, K_BOX_SPHERE, K_PLANE_GENERIC,
     K_CYLINDER_PLANE, K_TORUS_PLANE, K_BOX_BOX, K_CONVEX_CONVEX, K_CONE_PLANE,
+    K_SPHERE_TRIMESH, K_TRIMESH_CONVEX, K_TRIMESH_TRIMESH,
 })
 _KIND_NAMES = {
     K_SPHERE_SPHERE: "sphere-sphere", K_SPHERE_PLANE: "sphere-plane",
@@ -140,6 +144,13 @@ def _kind_nslots(kind: int, vmax: int) -> int:
         return 2 * min(vmax, VSLOT_CAP)
     if kind == K_CONVEX_CONVEX:
         return 8  # 4+4 bidirectional vertex-vs-supporting-plane manifold
+    if kind == K_SPHERE_TRIMESH:
+        return 4
+    if kind == K_TRIMESH_CONVEX:
+        # capped mesh verts in box + 8 box corners vs mesh
+        return min(vmax, VSLOT_CAP) + 8
+    if kind == K_TRIMESH_TRIMESH:
+        return 8  # 4+4 deepest vertices-vs-faces, both directions
     raise ValueError(f"unknown kind {kind}")
 
 
@@ -513,7 +524,7 @@ def _check_ported(statics: dict, kind_groups: dict):
         if kind not in _PORTED_KINDS:
             raise NotImplementedError(
                 f"narrow-phase kind {kind} ({kind_name(kind)} pairs) is not "
-                "ported yet (ported: kinds 0-6, 9 and 10)")
+                "ported yet (ported: kinds 0-6 and 9-13)")
 
 
 def scene_from_arrays(fields: dict, device, dtype=None) -> Scene:
@@ -691,6 +702,8 @@ class SceneBuilder:
             heights=heights,
             faces=None if faces is None else np.asarray(faces, np.int32),
         )
+        if g.gtype == TRIMESH and (g.verts is None or g.faces is None):
+            raise ValueError("TRIMESH geometry needs verts and faces")
         if g.gtype == BOX and g.verts is None:
             g.verts = box_vertices(*g.params[:3])
         self.geoms.append(g)
@@ -895,8 +908,9 @@ class SceneBuilder:
         vmax = max([1] + [len(g.verts) for g in all_geoms if g.verts is not None])
         geom_verts = np.zeros((ng, vmax, 3), dt)
         geom_nverts = np.zeros(ng, np.int64)
-        # hull triangles of a convex cloud, as indices into its own vertex
-        # order (degenerate clouds have none)
+        # the face table: a mesh's own triangles, and the hull triangles of a
+        # convex cloud as indices into its own vertex order (degenerate
+        # clouds have none)
         faces_of = {i: g.faces for i, g in enumerate(all_geoms)
                     if g.faces is not None}
         for i, g in enumerate(all_geoms):
@@ -1040,7 +1054,7 @@ class SceneBuilder:
             return self.bodies[k].compliant if kind == "free" else False
         # kinds whose kernels take an nslots argument and top-k to it (the
         # only ones a per-pair max_slots cap may shrink)
-        _CAPPABLE = {K_PLANE_GENERIC, K_BOX_BOX}
+        _CAPPABLE = {K_PLANE_GENERIC, K_BOX_BOX, K_TRIMESH_CONVEX}
 
         def _cp_for(s1, s2):
             for n1 in slot_cp_names(s1):

@@ -1,7 +1,10 @@
 """Vectorized narrow-phase collision kernels (counterpart of
 ``moby_tpu/geometry/narrowphase.py``): sphere-sphere, sphere-plane,
-box-sphere, plane-vertex solid, box-box, the closed-form cylinder-, cone- and
-torus-plane kinds, and convex-convex (GJK with the exact or sampled MTV).
+box-sphere, plane-vertex solid (boxes, polyhedra and triangle meshes),
+box-box, the closed-form cylinder-, cone- and torus-plane kinds,
+convex-convex (GJK with the exact or sampled MTV), and the triangle-mesh
+kinds: sphere-mesh, mesh-box and mesh-mesh (also mesh-polyhedron, through
+the polyhedron's hull triangles).
 
 Each *kind* of pair is processed as one vectorized function over all pairs of
 that kind (static host-side grouping) and the whole batch, producing
@@ -26,7 +29,9 @@ import torch
 from .. import config as cfg
 from ..core import scene as sc
 from ..math import quaternion as quat
+from ..math.linalg import dot3
 from ..math.so3 import orthonormal_basis
+from . import trimesh as tmesh
 
 
 class PairDist(NamedTuple):
@@ -144,10 +149,23 @@ def _box_sphere(scene, pos, quat_b, pairs):
     return dist, pbox, psph, point[:, :, None, :], n[:, :, None, :], dist[:, :, None]
 
 
+def _total_order(x):
+    """Integer keys that sort floats in IEEE total order: -NaN < -inf < ... <
+    -0.0 < 0.0 < ... < inf < NaN, a NaN by its sign bit."""
+    bits = x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+    mag = torch.iinfo(bits.dtype).max
+    return bits ^ ((bits >> (8 * bits.element_size() - 1)) & mag)
+
+
 def _topk_slots(sdist, k):
-    """Indices + values of the k smallest signed distances (per row)."""
-    vals, idx = torch.topk(-sdist, k, dim=-1)
-    return idx, -vals
+    """Indices + values of the k smallest signed distances (per row), the
+    lower index first among equal ones: what the JAX package's
+    ``lax.top_k(-sdist, k)`` gives. That orders by IEEE total order (a -0.0
+    before a 0.0, a NaN with its sign bit set before everything, one without
+    it after inf), so the port sorts stably by the same key. (`torch.topk`
+    leaves ties in no fixed order.)"""
+    idx = torch.sort(_total_order(sdist), dim=-1, stable=True)[1][..., :k]
+    return idx, torch.gather(sdist, -1, idx)
 
 
 def _take(x, idx):
@@ -439,17 +457,6 @@ def _topk_by_depth(depth, valid, k):
     return torch.cat(chosen, dim=-1)
 
 
-def _dot3(x, y):
-    """x·y over the last axis as the fused multiply-add chain
-    fma(x2, y2, fma(x1, y1, x0·y0)) (`torch.addcmul` rounds once): the
-    rounding of the JAX package's contractions on the CPU. The vertices of
-    a face share a depth along its normal up to this rounding, and the
-    manifold takes them deepest first."""
-    x0, x1, x2 = x.unbind(-1)
-    y0, y1, y2 = y.unbind(-1)
-    return torch.addcmul(torch.addcmul(x0 * y0, x1, y1), x2, y2)
-
-
 def _seg_seg_mid(a1, a2, b1, b2):
     """Midpoint of the closest points of segments a1-a2 and b1-b2."""
     u = a2 - a1
@@ -539,8 +546,8 @@ def _convex_convex(scene, pos, quat_b, pairs):
     # supporting planes: B's extreme toward A (along +n), A's toward B
     vmask_a = torch.arange(va.shape[2], device=dev) < nva[:, None]
     vmask_b = torch.arange(vb.shape[2], device=dev) < nvb[:, None]
-    dots_a = _dot3(va, n[:, :, None, :])
-    dots_b = _dot3(vb, n[:, :, None, :])
+    dots_a = dot3(va, n[:, :, None, :])
+    dots_b = dot3(vb, n[:, :, None, :])
     hB = torch.where(vmask_b, dots_b, -torch.inf).amax(dim=-1)   # B top
     sA = torch.where(vmask_a, dots_a, torch.inf).amin(dim=-1)    # A bottom
 
@@ -590,6 +597,214 @@ def _convex_convex(scene, pos, quat_b, pairs):
     return d, res.pa, res.pb, pts, n[:, :, None, :].expand_as(pts), sdist
 
 
+def _mesh_world_tris(scene, pos, quat_b, g, min_v=1, min_f=1):
+    """World vertices (B, P, V, 3), vertex mask (P, V), world triangles
+    (B, P, F, 3, 3) and face mask (P, F) of the mesh geometries g (one per
+    pair). The tables are cut to the group's own largest vertex and face
+    counts (at least `min_v`, `min_f`): the rows cut off are padding, which
+    every mesh function masks out, so the results are those over the
+    scene-wide tables, at a fraction of the work where one mesh of the scene
+    is much larger than the others."""
+    nverts = scene.host["geom_nverts"][g]
+    nfaces = scene.host["geom_nfaces"][g]
+    V = min(scene.vmax, max(min_v, int(nverts.max(initial=0))))
+    F = min(scene.geom_faces.shape[1], max(min_f, int(nfaces.max(initial=0))))
+    sp, sq = geom_world_pose(scene, pos, quat_b, g)
+    verts = scene.geom_verts[g, :V]                   # (P, V, 3) local
+    vw = sp[:, :, None, :] + quat.rotate(sq[:, :, None, :], verts)
+    tv = tmesh.gather_triangles(vw, scene.geom_faces[g, :F])
+    dev = pos.device
+    fvalid = torch.arange(F, device=dev) < scene.geom_nfaces[g][:, None]
+    vvalid = torch.arange(V, device=dev) < scene.geom_nverts[g][:, None]
+    return vw, vvalid, tv, fvalid
+
+
+def _dedup_points(pts, sd):
+    """Mask out later slots whose contact point coincides with an earlier one
+    (adjacent faces sharing the closest edge or vertex give duplicates)."""
+    S = pts.shape[-2]
+    diff = pts[..., :, None, :] - pts[..., None, :, :]
+    d2 = dot3(diff, diff)                                    # (..., S, S)
+    ar = torch.arange(S, device=pts.device)
+    earlier = ar[None, :] < ar[:, None]                      # [i, j]: j < i
+    dup = ((d2 < 1e-16) & earlier).any(dim=-1)
+    return torch.where(dup, torch.inf, sd)
+
+
+def _sphere_trimesh(scene, pos, quat_b, pairs):
+    """A = sphere, B = triangle mesh; up to 4 contacts at the nearest faces
+    (the reference resolves this through the generic
+    `calc_signed_dist`/`calc_dist_and_normal` dispatch over the mesh BVH,
+    CCD.inl:649 + TriangleMeshPrimitive::calc_signed_dist)."""
+    dtype = pos.dtype
+    ga, gb = _pair_geoms(scene, pairs)   # sphere, mesh
+    c, _ = geom_world_pose(scene, pos, quat_b, ga)
+    r = scene.geom_params[ga, 0]
+    _, _, tv, fvalid = _mesh_world_tris(scene, pos, quat_b, gb, min_f=4)
+
+    a = tv[..., 0, :]
+    b = tv[..., 1, :]
+    c3 = tv[..., 2, :]
+    q, d = tmesh.closest_point_and_distance(c[:, :, None, :], a, b, c3)  # (B, P, F)
+    nrm = torch.linalg.cross(b - a, c3 - a)
+    nlen = _norm(nrm, keepdim=True)
+    nrm = nrm / nlen.clamp_min(1e-30)
+    valid = fvalid & (nlen[..., 0] > 1e-20)
+    # candidate faces by UNSIGNED distance (signing first would pull in far
+    # faces whose outward normal faces away, e.g. the underside of a cube
+    # the sphere rests on); the face-normal sign means something only for
+    # the locally nearest faces
+    du = torch.where(valid, d, torch.inf)
+    idx, d4u = _topk_slots(du, 4)
+    q4 = _take(q, idx)                                            # (B, P, 4, 3)
+    n_face4 = _take(nrm, idx)
+    sep_dir = c[:, :, None, :] - q4
+    s4 = tmesh.face_side(dot3(sep_dir, n_face4), d4u)
+    # `- r` as the JAX package writes it: r (P,) broadcasts against the 4
+    # slots, which is each pair's own radius for one pair a group (a trap
+    # of the JAX package for more, ROADMAP §3, matched)
+    sd4 = torch.where(torch.isfinite(d4u), s4 * d4u - r, torch.inf)
+    sep_len = _norm(sep_dir, keepdim=True)
+    sep_n = sep_dir / sep_len.clamp_min(1e-30)
+    # normal: from the mesh (geom2) toward the sphere (geom1)
+    n4 = torch.where(((s4 < 0) | (sep_len[..., 0] < tmesh.sep_tol(dtype)))[..., None],
+                     n_face4, sep_n)
+    sd4 = _dedup_points(q4, sd4)
+
+    dist = sd4[..., 0]
+    pb = q4[..., 0, :]
+    pa = c - n4[..., 0, :] * r[:, None]
+    pts = 0.5 * (q4 + (c[:, :, None, :] - n4 * r[:, None, None]))
+    return dist, pa, pb, pts, n4, sd4
+
+
+def _box_point_sdf(half, cl):
+    """Signed distance, closest surface point (box frame) and outward normal
+    of points cl (B, P, N, 3), in the box frame, against boxes of
+    half-extents half (P, 3)."""
+    h = half[:, None, :]
+    clamped = torch.minimum(torch.maximum(cl, -h), h)
+    dvec = cl - clamped
+    dn = _norm(dvec)
+    outside = dn > 1e-12
+    face_d = h - cl.abs()                               # (B, P, N, 3)
+    ax = torch.argmin(face_d, dim=-1)                   # first minimum
+    min_face = face_d.amin(dim=-1)
+    sd = torch.where(outside, dn, -min_face)
+    axis_n = (torch.nn.functional.one_hot(ax, 3).to(cl.dtype)
+              * torch.sign(_take(cl, ax[..., None])))
+    n_out = torch.where(outside[..., None], dvec / dn.clamp_min(1e-30)[..., None], axis_n)
+    # surface point: the clamp (outside) or the projection along the axis
+    surf_in = torch.addcmul(cl, n_out, min_face[..., None])
+    surf = torch.where(outside[..., None], clamped, surf_in)
+    return sd, surf, n_out
+
+
+_BOX_CORNER_SIGNS = [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
+                     for sz in (-1.0, 1.0)]
+
+
+def _trimesh_convex(scene, pos, quat_b, pairs, nslots):
+    """A = triangle mesh, B = box. nslots - 8 slots: the mesh's deepest
+    vertices against the box's signed distance; 8 slots: the box's corners
+    against the mesh surface. (Reference: the generic vertex /
+    `calc_dist_and_normal` dispatch, CCD.inl:649.)"""
+    dtype = pos.dtype
+    ga, gb = _pair_geoms(scene, pairs)   # mesh, box
+    bp, bq = geom_world_pose(scene, pos, quat_b, gb)
+    half = scene.geom_params[gb, :3]
+    nsl_v = nslots - 8   # vertex slots (the cap); the other 8 are box corners
+    vw, vvalid, tv, fvalid = _mesh_world_tris(scene, pos, quat_b, ga, min_v=nsl_v)
+    bq_v = bq[:, :, None, :]
+
+    # mesh vertices against the box
+    cl = quat.inverse_rotate(bq_v, vw - bp[:, :, None, :])
+    sd_v, surf, n_loc = _box_point_sdf(half, cl)
+    sd_v = torch.where(vvalid, sd_v, torch.inf)
+    n_v = quat.rotate(bq_v, n_loc)      # outward from the box = geom2 -> geom1
+    pts_v = vw
+
+    # box corners against the mesh surface
+    corners_l = (torch.tensor(_BOX_CORNER_SIGNS, dtype=dtype, device=pos.device)
+                 * half[:, None, :])                              # (P, 8, 3)
+    cw = bp[:, :, None, :] + quat.rotate(bq_v, corners_l)        # (B, P, 8, 3)
+    sd_c, q_c, n_out = tmesh.points_vs_mesh(cw, tv, fvalid)
+    sep_dir = q_c - cw
+    sep_len = _norm(sep_dir, keepdim=True)
+    sep_n = sep_dir / sep_len.clamp_min(1e-30)
+    # normal from the box (geom2) toward the mesh (geom1): minus the mesh's
+    # outward normal where the corner has penetrated (or sits exactly on the
+    # surface), toward the surface otherwise
+    n_c = torch.where(((sd_c < 0) | (sep_len[..., 0] < tmesh.sep_tol(dtype)))[..., None],
+                      -n_out, sep_n)
+    pts_c = cw
+    sd_c = torch.where(torch.isfinite(sd_c), sd_c, torch.inf)
+
+    # closest points for the conservative-advancement direction, on the mesh
+    # (pa) and on the box (pb), over every vertex before the slot cap
+    surf_w = bp[:, :, None, :] + quat.rotate(bq_v, surf)
+    sdist_full = torch.cat([sd_v, sd_c], dim=-1)
+    pa_all = torch.cat([vw, q_c], dim=-2)
+    pb_all = torch.cat([surf_w, cw], dim=-2)
+    dist = sdist_full.amin(dim=-1)
+    imin = torch.argmin(sdist_full, dim=-1)
+    pa = _take(pa_all, imin[..., None])[..., 0, :]
+    pb = _take(pb_all, imin[..., None])[..., 0, :]
+
+    if nsl_v < scene.vmax:
+        # slot cap: the deepest nsl_v mesh vertices
+        idx, _ = _topk_slots(sd_v, nsl_v)
+        pts_v, n_v, sd_v = _take(pts_v, idx), _take(n_v, idx), _take(sd_v, idx)
+
+    pts = torch.cat([pts_v, pts_c], dim=-2)
+    nrm = torch.cat([n_v, n_c], dim=-2)
+    sdist = torch.cat([sd_v, sd_c], dim=-1)
+    return dist, pa, pb, pts, nrm, sdist
+
+
+def _mesh_side(scene, vw, vvalid, tv_other, fvalid_other, toward):
+    """The deepest 4 vertices of one mesh against the other's surface:
+    (points, closest points on the other, normal from geom2 toward geom1,
+    signed distances). `toward` is +1 when these vertices are geom1's (the
+    normal is the other's outward one) and -1 when they are geom2's."""
+    sd, q, n_out = tmesh.points_vs_mesh(vw, tv_other, fvalid_other)
+    sd = torch.where(vvalid, sd, torch.inf)
+    idx, sd4 = _topk_slots(sd, 4)
+    pts, q4, nout4 = _take(vw, idx), _take(q, idx), _take(n_out, idx)
+    sep = (pts - q4) if toward > 0 else (q4 - pts)
+    sep_len = _norm(sep, keepdim=True)
+    sep_n = sep / sep_len.clamp_min(1e-30)
+    # the other's outward normal (signed) where penetrating or exactly on
+    # its surface (the separation vanishes), else the separation direction
+    use = (sd4 < 0) | (sep_len[..., 0] < tmesh.sep_tol(vw.dtype))
+    n4 = torch.where(use[..., None], nout4 if toward > 0 else -nout4, sep_n)
+    return pts, q4, n4, sd4
+
+
+def _trimesh_trimesh(scene, pos, quat_b, pairs):
+    """A, B triangle meshes (a POLYHEDRON through its hull triangles): the
+    deepest 4 vertices of each against the other's surface
+    (vertex-vs-closest-triangle with the face-normal sign)."""
+    ga, gb = _pair_geoms(scene, pairs)
+    vwA, vvA, tvA, fvA = _mesh_world_tris(scene, pos, quat_b, ga, min_v=4)
+    vwB, vvB, tvB, fvB = _mesh_world_tris(scene, pos, quat_b, gb, min_v=4)
+    ptsA, qA4, nA4, sd4A = _mesh_side(scene, vwA, vvA, tvB, fvB, +1)
+    ptsB, qB4, nB4, sd4B = _mesh_side(scene, vwB, vvB, tvA, fvA, -1)
+
+    pts = torch.cat([ptsA, ptsB], dim=-2)
+    nrm = torch.cat([nA4, nB4], dim=-2)
+    sdist = _dedup_points(pts, torch.cat([sd4A, sd4B], dim=-1))
+
+    # pa on mesh A, pb on mesh B (the CA direction pa - pb must not vanish)
+    pa_all = torch.cat([ptsA, qB4], dim=-2)
+    pb_all = torch.cat([qA4, ptsB], dim=-2)
+    dist = sdist.amin(dim=-1)
+    imin = torch.argmin(sdist, dim=-1)
+    pa = _take(pa_all, imin[..., None])[..., 0, :]
+    pb = _take(pb_all, imin[..., None])[..., 0, :]
+    return dist, pa, pb, pts, nrm, sdist
+
+
 _KERNELS = {
     sc.K_SPHERE_SPHERE: _sphere_sphere,
     sc.K_SPHERE_PLANE: _sphere_plane,
@@ -598,6 +813,14 @@ _KERNELS = {
     sc.K_TORUS_PLANE: _torus_plane,
     sc.K_CONE_PLANE: _cone_plane,
     sc.K_CONVEX_CONVEX: _convex_convex,
+    sc.K_SPHERE_TRIMESH: _sphere_trimesh,
+    sc.K_TRIMESH_TRIMESH: _trimesh_trimesh,
+}
+# the kinds whose functions take the group's slot count (they top-k to it)
+_SLOTTED = {
+    sc.K_PLANE_GENERIC: _plane_generic,
+    sc.K_BOX_BOX: _box_box,
+    sc.K_TRIMESH_CONVEX: _trimesh_convex,
 }
 
 
@@ -633,9 +856,9 @@ def narrow_phase(scene: sc.Scene, pos, quat_b, tol):
         pairs = grp["pairs"]
         if len(pairs) == 0:
             continue
-        if kind in (sc.K_PLANE_GENERIC, sc.K_BOX_BOX):
-            fn = _plane_generic if kind == sc.K_PLANE_GENERIC else _box_box
-            d, a, b, pts, nrm, sd = fn(scene, pos, quat_b, pairs, grp["nslots"])
+        if kind in _SLOTTED:
+            d, a, b, pts, nrm, sd = _SLOTTED[kind](scene, pos, quat_b, pairs,
+                                                   grp["nslots"])
         elif kind in _KERNELS:
             d, a, b, pts, nrm, sd = _KERNELS[kind](scene, pos, quat_b, pairs)
         else:

@@ -7,8 +7,10 @@ src/XMLReader.cpp:151-204) into the port's compiled `Scene` + initial
     scene, state, opts = mobyxml.load("scenes/fixed-articulated-table.xml",
                                       device="cuda")
 
-Covered: Sphere, Box, Plane, Cylinder, Cone, Torus, VertexCloud and
-Polyhedron (a convex OBJ, read relative to the scene file) primitives;
+Covered: Sphere, Box, Plane, Cylinder, Cone, Torus, VertexCloud,
+Polyhedron (a convex OBJ, read relative to the scene file), TriangleMesh (an
+OBJ read the same way; `center` and `density`) and TriangleMeshInline
+primitives;
 GravityForce and StokesDragForce;
 RigidBody (enabled, position, rpy/quat/aangle, velocities,
 InertiaFromPrimitive, CollisionGeometry); RCArticulatedBody with inline
@@ -24,11 +26,11 @@ penalty-kp/kv), an articulated body's <Gears> and the simulator's
 free bodies compile and step as in the JAX package.
 
 What the port does not run raises `NotImplementedError` naming it: a
-Heightmap, HeightmapInline, TriangleMesh or TriangleMeshInline primitive when
-a body refers to it (an unused one, e.g. a visualization-only shape, is
-ignored), an embedded SDF model, an articulated body read from a URDF file;
+Heightmap or HeightmapInline primitive when a body refers to it (an unused
+one, e.g. a visualization-only shape, is ignored), an embedded SDF model, an
+articulated body read from a URDF file;
 `SceneBuilder.compile` refuses the geometry pairs the narrow phase does not
-run (e.g. cylinder-sphere), naming the pair.
+run (e.g. cylinder-sphere, or a mesh against a cylinder), naming the pair.
 """
 
 from __future__ import annotations
@@ -47,9 +49,8 @@ from ..dynamics import model as amdl
 # primitive tags the port reads, and those the JAX reader accepts and the
 # port's geometry does not run
 _PRIMITIVES = ("Sphere", "Box", "Plane", "Cylinder", "Cone", "Torus",
-               "VertexCloud", "Polyhedron")
-_UNPORTED_PRIMITIVES = ("Heightmap", "TriangleMesh", "TriangleMeshInline",
-                        "HeightmapInline")
+               "VertexCloud", "Polyhedron", "TriangleMesh", "TriangleMeshInline")
+_UNPORTED_PRIMITIVES = ("Heightmap", "HeightmapInline")
 
 
 @dataclass
@@ -111,6 +112,7 @@ class _Primitive:
     mass: float = 0.0
     inertia: np.ndarray = None  # (3,3) about primitive COM, primitive frame
     verts: np.ndarray = None
+    faces: np.ndarray = None    # (F, 3) triangle indices of a triangle mesh
 
 
 def _resolve_path(fname, base_dir):
@@ -192,6 +194,46 @@ def _parse_primitive(el, base_dir=None):
                 pass
         return _Primitive(sc.POLYHEDRON, np.array([0.0]), pos, quat, m,
                           inertia, verts)
+    if tag == "TriangleMeshInline":
+        # the JAX package's xmlwriter extension: a self-contained indexed mesh
+        verts = _floats(el.get("vertices")).reshape(-1, 3)
+        faces = np.array([int(t) for t in el.get("faces").split()],
+                         np.int32).reshape(-1, 3)
+        m = float(mass_attr) if mass_attr else 0.0
+        from ..geometry import trimesh
+
+        inertia = np.eye(3) * 1e-12
+        if m > 0:
+            try:
+                inertia = trimesh.mesh_inertia(m, verts, faces)[0]
+            except ValueError:
+                pass
+        return _Primitive(sc.TRIMESH, np.array([0.0]), pos, quat, m,
+                          inertia, verts, faces)
+    if tag == "TriangleMesh":
+        # TriangleMeshPrimitive::load_from_xml's attributes: filename (an
+        # OBJ), center (move the mesh onto its COM; default true),
+        # src/TriangleMeshPrimitive.cpp:199
+        from ..geometry import trimesh
+
+        verts, faces = trimesh.load_obj(_resolve_path(el.get("filename"), base_dir))
+        m = float(mass_attr) if mass_attr else 0.0
+        inertia = np.eye(3) * 1e-12
+        com = np.zeros(3)
+        if len(faces):
+            try:
+                # max(m, 1): a mesh lighter than 1 kg gets the inertia of 1 kg,
+                # as in the JAX package (ROADMAP §3, matched)
+                inertia, com, vol = trimesh.mesh_inertia(max(m, 1.0), verts, faces)
+                if m <= 0 and density:
+                    m = float(density) * vol
+                    inertia, com, vol = trimesh.mesh_inertia(m, verts, faces)
+            except ValueError:
+                pass
+        if el.get("center", "true").lower() in ("true", "1"):
+            verts = verts - com
+        return _Primitive(sc.TRIMESH, np.array([0.0]), pos, quat, m,
+                          inertia, verts, faces)
     raise ValueError(f"unsupported primitive tag {tag}")
 
 
@@ -359,7 +401,7 @@ def load(path: str, post_build=None, device="cuda", dtype=None):
             # compose geometry-relative pose with the primitive's own pose
             Rg = _quat_to_R(gquat)
             b.add_geom(bid, p.gtype, p.params, pos=gpos + Rg @ p.pos,
-                       quat=_quat_mul(gquat, p.quat), verts=p.verts)
+                       quat=_quat_mul(gquat, p.quat), verts=p.verts, faces=p.faces)
 
     for c in sim_el:
         if c.tag == "ContactParameters":

@@ -9,6 +9,18 @@ import torch
 from torch.autograd import forward_ad
 
 
+def dot3(x, y):
+    """x·y over the last axis as the fused multiply-add chain
+    fma(x2, y2, fma(x1, y1, x0·y0)) (`torch.addcmul` rounds once): the
+    rounding of the JAX package's jitted ``jnp.sum(x * y, axis=-1)`` and
+    contractions on the CPU. Where ties or the sign of a near-zero product
+    decide (a face's vertices sharing a depth along its normal, a point
+    resting on a mesh face), the port then decides as the JAX package does."""
+    x0, x1, x2 = x.unbind(-1)
+    y0, y1, y2 = y.unbind(-1)
+    return torch.addcmul(torch.addcmul(x0 * y0, x1, y1), x2, y2)
+
+
 def solve_ex(A, b):
     """A⁻¹·b for A (..., n, n) and b (..., n, k), with no error check: a
     singular system gives non-finite values, which callers read as "not

@@ -728,3 +728,206 @@ def assert_same_hulls(tscene, jfields):
             ts = {tuple(r) for r in np.round(t[g, :c], 12)}
             js = {tuple(r) for r in np.round(j[g, :c], 12)}
             assert ts == js, (k, g)
+
+
+# ---- triangle meshes, on either package ----
+
+# the JAX package's mesh tests' polygons (tests/test_trimesh.py): the
+# non-convex L and the V-notch channel, in the xz plane
+L_POLY = [(0, 0), (2, 0), (2, 1), (1, 1), (1, 2), (0, 2)]
+NOTCH_POLY = [(0.0, -0.3), (1.0, 0.5), (1.0, -0.8), (-1.0, -0.8), (-1.0, 0.5)]
+
+
+def cube_mesh(h=0.5):
+    """`tests/test_trimesh.py::cube_mesh`: a cube of half-size h as 12
+    outward triangles."""
+    v = np.array([
+        [-h, -h, -h], [h, -h, -h], [h, h, -h], [-h, h, -h],
+        [-h, -h, h], [h, -h, h], [h, h, h], [-h, h, h]])
+    f = np.array([
+        [0, 2, 1], [0, 3, 2],
+        [4, 5, 6], [4, 6, 7],
+        [0, 1, 5], [0, 5, 4],
+        [2, 3, 7], [2, 7, 6],
+        [1, 2, 6], [1, 6, 5],
+        [3, 0, 4], [3, 4, 7]], np.int32)
+    return v, f
+
+
+def icosphere(subdiv=2, r=0.5):
+    """`tests/test_trimesh_scale.py::icosphere` (20·4^subdiv faces), its
+    icosahedron's hull from the port's `geometry.hull` (the same quickhull,
+    `native/hull.cpp`, as the JAX package's `native.convex_hull`)."""
+    from moby_tpu_torch.geometry import hull
+
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    v = []
+    for s1 in (-1, 1):
+        for s2 in (-1, 1):
+            v += [(0, s1, s2 * phi), (s1, s2 * phi, 0), (s2 * phi, 0, s1)]
+    v = np.array(v, float)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    verts, faces = hull.convex_hull(v)
+    for _ in range(subdiv):
+        edge_mid = {}
+        new_faces = []
+        vlist = list(verts)
+
+        def mid(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in edge_mid:
+                m = vlist[i] + vlist[j]
+                edge_mid[key] = len(vlist)
+                vlist.append(m / np.linalg.norm(m))
+            return edge_mid[key]
+
+        for (a, b, c) in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            new_faces += [[a, ab, ca], [ab, b, bc], [ca, bc, c], [ab, bc, ca]]
+        verts = np.array(vlist)
+        faces = np.array(new_faces, np.int32)
+    return verts * r, faces
+
+
+def _axis_quat(axis, ang):
+    axis = np.asarray(axis, float) / np.linalg.norm(axis)
+    return np.concatenate([axis * np.sin(ang / 2), [np.cos(ang / 2)]])
+
+
+def _islands_apart(b, islands, ground=None, on_ground=()):
+    """Disable every pair between bodies of different islands, and between
+    `ground` and every body but those `on_ground`."""
+    for i, a in enumerate(islands):
+        for c in islands[i + 1:]:
+            for x in a:
+                for y in c:
+                    b.disabled_pairs.add(tuple(sorted((x, y))))
+    if ground is not None:
+        for isl in islands:
+            for x in isl:
+                if x not in on_ground:
+                    b.disabled_pairs.add(tuple(sorted((x, ground))))
+
+
+def build_mesh_kinds(sc, lift=2e-4):
+    """One island per mesh pair kind, 10 m apart, each body `lift` above its
+    contact: the L-prism on the plane (kind 3), a sphere (r=0.3) in the
+    V-notch channel (kind 11, two faces at once; the only sphere-mesh pair,
+    as the JAX package's kind 11 takes one pair a group, ROADMAP §3), a mesh
+    cube on a BOX platform (kind 12; the BOX added first, so the pair is
+    flipped), a BOX on a mesh slab (kind 12, the mesh first) and a BOX over
+    an icosphere (subdivided once, kind 12), two mesh cubes stacked on the
+    plane (kinds 3 and 13), a mesh cube on a POLYHEDRON slab (kind 13
+    through the slab's hull triangles, the slab first) and a POLYHEDRON
+    octahedron tip down on a mesh slab (the mesh first). Every body but the
+    supports is enabled."""
+    from moby_tpu_torch.geometry import trimesh as tm
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    cv, cf = cube_mesh(0.4)
+    Jc = tm.mesh_inertia(1.0, cv, cf)[0]
+    lv, lf = tm.extrude_polygon(L_POLY, -0.5, 0.5, apex=0)
+    Jl, lcom, _ = tm.mesh_inertia(2.0, lv, lf)
+    # the L's cross-section stands in the xz plane, its COM lcom[2] up
+    b.add_body("L", mass=2.0, inertia=Jl, pos=np.array([0.0, 0.0, lcom[2] + lift]))
+    b.add_geom("L", sc.TRIMESH, [0.0], verts=lv - lcom, faces=lf)
+    nv, nf = tm.extrude_polygon(NOTCH_POLY, -1.0, 1.0, apex=0)
+    b.add_body("channel", enabled=False, pos=np.array([10.0, 0.0, 0.0]))
+    b.add_geom("channel", sc.TRIMESH, [0.0], verts=nv, faces=nf)
+    zb = 0.3 * np.sqrt(1.0 + 0.8 ** 2) - 0.3
+    b.add_body("ball", mass=1.0, inertia=sc.sphere_inertia(1.0, 0.3),
+               pos=np.array([10.0, 0.0, zb + lift * np.sqrt(1.64)]))
+    b.add_geom("ball", sc.SPHERE, [0.3])
+    b.add_body("plat", enabled=False, pos=np.array([20.0, 0.0, 0.0]))
+    b.add_geom("plat", sc.BOX, [1.0, 1.0, 0.5])
+    b.add_body("onplat", mass=1.0, inertia=Jc, pos=np.array([20.0, 0.0, 0.9 + lift]))
+    b.add_geom("onplat", sc.TRIMESH, [0.0], verts=cv, faces=cf)
+    sv, sf = tm.extrude_polygon([(-2.0, -2.0), (2.0, -2.0), (2.0, 2.0), (-2.0, 2.0)],
+                                -0.25, 0.25)
+    q_slab = _axis_quat([1, 0, 0], np.pi / 2)     # the extrusion axis y to z
+    b.add_body("mslab", enabled=False, pos=np.array([30.0, 0.0, 0.25]), quat=q_slab)
+    b.add_geom("mslab", sc.TRIMESH, [0.0], verts=sv, faces=sf)
+    b.add_body("boxon", mass=1.0, inertia=sc.box_inertia(1.0, 0.3, 0.2, 0.1),
+               pos=np.array([30.0, 0.0, 0.6 + lift]))
+    b.add_geom("boxon", sc.BOX, [0.3, 0.2, 0.1])
+    b.add_body("m1", mass=1.0, inertia=Jc, pos=np.array([40.0, 0.0, 0.4 + lift]))
+    b.add_geom("m1", sc.TRIMESH, [0.0], verts=cv, faces=cf)
+    b.add_body("m2", mass=1.0, inertia=Jc, pos=np.array([40.0, 0.0, 1.2 + 2 * lift]))
+    b.add_geom("m2", sc.TRIMESH, [0.0], verts=cv, faces=cf)
+    b.add_body("pslab", enabled=False, pos=np.array([50.0, 0.0, 0.2]))
+    b.add_geom("pslab", sc.POLYHEDRON, [0.0], verts=cube_verts(1.0) * np.array([1.0, 1.0, 0.2]))
+    b.add_body("onpoly", mass=1.0, inertia=Jc, pos=np.array([50.0, 0.0, 0.8 + lift]))
+    b.add_geom("onpoly", sc.TRIMESH, [0.0], verts=cv, faces=cf)
+    b.add_body("mslab2", enabled=False, pos=np.array([60.0, 0.0, 0.25]), quat=q_slab)
+    b.add_geom("mslab2", sc.TRIMESH, [0.0], verts=sv, faces=sf)
+    b.add_body("octa", mass=1.0, inertia=np.eye(3) * 0.05,
+               pos=np.array([60.0, 0.0, 0.9 + lift]))
+    b.add_geom("octa", sc.POLYHEDRON, [0.0], verts=OCTA * 0.4)
+    iv, if_ = icosphere(1, 0.5)
+    b.add_body("ico", enabled=False, pos=np.array([70.0, 0.0, 0.5]))
+    b.add_geom("ico", sc.TRIMESH, [0.0], verts=iv, faces=if_)
+    b.add_body("boxico", mass=1.0, inertia=sc.box_inertia(1.0, 0.2, 0.2, 0.2),
+               pos=np.array([70.0, 0.0, 1.2 + lift]))
+    b.add_geom("boxico", sc.BOX, [0.2, 0.2, 0.2])
+    pairs = [("ground", "L"), ("channel", "ball"), ("plat", "onplat"),
+             ("mslab", "boxon"), ("ground", "m1"), ("m1", "m2"),
+             ("pslab", "onpoly"), ("mslab2", "octa"), ("ico", "boxico")]
+    _islands_apart(b, [["L"], ["channel", "ball"], ["plat", "onplat"],
+                       ["mslab", "boxon"], ["m1", "m2"], ["pslab", "onpoly"],
+                       ["mslab2", "octa"], ["ico", "boxico"]],
+                   ground="ground", on_ground=("L", "m1"))
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5, nk=4)
+    for a, c in pairs:
+        b.set_contact_params(a, c, cp)
+    return b
+
+
+def _tonne_mesh(b, sc, name, verts, faces, pos):
+    """A 1 t mesh body (as `chip_smoke.py`'s mesh configurations)."""
+    from moby_tpu_torch.geometry import trimesh as tm
+
+    J = tm.mesh_inertia(1000.0, verts, faces)[0]
+    b.add_body(name, mass=1000.0, inertia=J, pos=np.asarray(pos, float))
+    b.add_geom(name, sc.TRIMESH, [0.0], verts=verts, faces=faces)
+
+
+def build_l_and_notch(sc):
+    """`chip_smoke.py`'s "meshes": the L-prism resting on the plane (kind 3)
+    and, 10 m away, a sphere (r=0.3) resting in the V-notch channel (kind
+    11, two faces at once), 1 t each."""
+    from moby_tpu_torch.geometry import trimesh as tm
+
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    lv, lf = tm.extrude_polygon(L_POLY, -0.5, 0.5, apex=0)
+    com = tm.mesh_inertia(1000.0, lv, lf)[1]
+    _tonne_mesh(b, sc, "L", lv - com, lf, [0.0, 0.0, com[2]])
+    nv, nf = tm.extrude_polygon(NOTCH_POLY, -1.0, 1.0, apex=0)
+    b.add_body("channel", enabled=False, pos=np.array([10.0, 0.0, 0.0]))
+    b.add_geom("channel", sc.TRIMESH, [0.0], verts=nv, faces=nf)
+    b.add_body("ball", mass=1000.0, inertia=sc.sphere_inertia(1000.0, 0.3),
+               pos=np.array([10.0, 0.0, 0.3 * np.sqrt(1.64) - 0.3]))
+    b.add_geom("ball", sc.SPHERE, [0.3])
+    cp = sc.ContactParams(epsilon=0.0, mu_coulomb=0.5)
+    b.set_contact_params("ground", "L", cp)
+    b.set_contact_params("channel", "ball", cp)
+    _islands_apart(b, [["ground", "L"], ["channel", "ball"]])
+    return b
+
+
+def build_mesh_on_box(sc):
+    """`chip_smoke.py`'s "meshplatforms": a 1 t mesh cube (half-size 0.4)
+    resting on a BOX platform (kind 12)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("box", enabled=False)
+    b.add_geom("box", sc.BOX, [1.0, 1.0, 0.5])
+    v, f = cube_mesh(0.4)
+    _tonne_mesh(b, sc, "mesh", v, f, [0.0, 0.0, 0.9])
+    b.set_contact_params("box", "mesh", sc.ContactParams(epsilon=0.0, mu_coulomb=0.5))
+    return b

@@ -6,7 +6,8 @@ Both in-repo scenes and the articulated test scenes compile to the same
 arrays (equal, not close); a compiled JAX scene carried across with
 `scene_from_arrays` equals the port's own compile; what the port does not
 run raises `NotImplementedError` naming it; the curved and convex
-primitive tags (with a Polyhedron's OBJ) load to the JAX loader's arrays;
+primitive tags (with a Polyhedron's OBJ) and the mesh tags load to the JAX
+loader's arrays;
 loading and stepping a scene imports neither JAX nor Triton.
 """
 
@@ -86,14 +87,13 @@ _CYLINDER_SCENE = """<XML><MOBY>
 
 _UNPORTED_TAGS = {
     "HeightmapInline": '<HeightmapInline id="c1" rows="2" cols="2" heights="0 0 0 0" />',
-    "TriangleMeshInline": ('<TriangleMeshInline id="c1" vertices="0 0 0 1 0 0 0 1 0 0 0 1" '
-                           'faces="0 2 1 0 1 3 0 3 2 1 2 3" mass="1" />'),
+    "Heightmap": '<Heightmap id="c1" filename="terrain.txt" width="2" depth="2" />',
 }
 
 
 def test_unported_primitive_raises_naming_it(tmp_path):
-    """A primitive the port does not run (HeightmapInline,
-    TriangleMeshInline) is refused by name where a body uses it, and
+    """A primitive the port does not run (HeightmapInline, Heightmap) is
+    refused by name where a body uses it, and
     ignored where none does; a cylinder on a plane loads like the JAX
     package's."""
     for tag, prim in _UNPORTED_TAGS.items():
@@ -209,6 +209,88 @@ def test_curved_and_convex_tags_load_like_jax(tmp_path):
     np.testing.assert_allclose(
         t2n(tscene.mass)[:5],
         [2.0 * np.pi * 0.25, 1.5, 0.5 * 2 * np.pi ** 2 * 0.0625, 0.8, 0.3])
+    cscene, cstate = torch_scene_state(jscene, jstate)
+    assert_same_compiled(cscene, cstate, jscene, jstate)
+
+
+def _obj(verts, faces):
+    return "".join(f"v {float(x)!r} {float(y)!r} {float(z)!r}\n" for x, y, z in verts) + "".join(
+        f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces)
+
+
+_MESH_SCENE = """<XML>
+<DRIVER step-size="0.001" />
+<MOBY>
+  <TriangleMesh id="lm" filename="l.obj" density="2.0" />
+  <TriangleMesh id="cm" filename="cube.obj" center="false" mass="0.5" />
+  <TriangleMeshInline id="tet" vertices="0 0 0  0.4 0 0  0 0.4 0  0 0 0.4"
+      faces="0 2 1  0 1 3  0 3 2  1 2 3" mass="1.2" />
+  <Plane id="p" />
+  <GravityForce id="g" accel="0 0 -9.81" />
+  <RigidBody id="L" position="0 0 0.8335">
+    <InertiaFromPrimitive primitive-id="lm" /><CollisionGeometry primitive-id="lm" />
+  </RigidBody>
+  <RigidBody id="cube" position="4 0 0.4002" angular-velocity="0 0 1">
+    <InertiaFromPrimitive primitive-id="cm" /><CollisionGeometry primitive-id="cm" />
+  </RigidBody>
+  <RigidBody id="tet" position="8 0 0.0002">
+    <InertiaFromPrimitive primitive-id="tet" /><CollisionGeometry primitive-id="tet" />
+  </RigidBody>
+  <RigidBody id="ground" enabled="false"><CollisionGeometry primitive-id="p" /></RigidBody>
+  <TimeSteppingSimulator>
+    <DynamicBody dynamic-body-id="L" /><DynamicBody dynamic-body-id="cube" />
+    <DynamicBody dynamic-body-id="tet" /><DynamicBody dynamic-body-id="ground" />
+    <RecurrentForce recurrent-force-id="g" />
+    <ContactParameters object1-id="ground" object2-id="L" mu-coulomb="0.5" epsilon="0" />
+    <ContactParameters object1-id="ground" object2-id="cube" mu-coulomb="0.5" epsilon="0" />
+    <ContactParameters object1-id="ground" object2-id="tet" mu-coulomb="0.5" epsilon="0" />
+    <DisabledPair object1-id="L" object2-id="cube" />
+    <DisabledPair object1-id="L" object2-id="tet" />
+    <DisabledPair object1-id="cube" object2-id="tet" />
+  </TimeSteppingSimulator>
+</MOBY></XML>"""
+
+
+def write_mesh_scene(directory):
+    """A scene of the mesh tags, its OBJs beside it: the L-prism as a
+    <TriangleMesh> centred on its COM (mass from `density`), a cube 0.1 m
+    off its origin as a <TriangleMesh> with center="false" and a mass below
+    1 kg, and a tetrahedron as a <TriangleMeshInline>, each on the plane
+    (kind 3). Returns the scene's path."""
+    from moby_tpu_torch.geometry import trimesh as ttm
+
+    lv, lf = ttm.extrude_polygon([(0, 0), (2, 0), (2, 1), (1, 1), (1, 2), (0, 2)],
+                                 -0.5, 0.5)
+    (directory / "l.obj").write_text(_obj(lv + [0.3, 0.0, 0.0], lf))
+    cv = np.array([[sx, sy, sz] for sz in (-0.4, 0.4) for sy in (-0.4, 0.4)
+                   for sx in (-0.4, 0.4)])
+    cf = np.array([[0, 2, 3], [0, 3, 1], [4, 5, 7], [4, 7, 6], [0, 1, 5], [0, 5, 4],
+                   [2, 6, 7], [2, 7, 3], [1, 3, 7], [1, 7, 5], [0, 4, 6], [0, 6, 2]])
+    (directory / "cube.obj").write_text(_obj(cv + [0.1, 0.0, 0.0], cf))
+    path = directory / "meshes.xml"
+    path.write_text(_MESH_SCENE)
+    return path
+
+
+def test_mesh_tags_load_like_jax(tmp_path):
+    """<TriangleMesh> (an OBJ read relative to the scene file, center true
+    and false, density without mass) and <TriangleMeshInline> load to the JAX
+    loader's arrays, face tables and masses; the pairs are kind 3."""
+    path = write_mesh_scene(tmp_path)
+    jscene, jstate, _ = jxml.load(str(path))
+    tscene, tstate, _ = txml.load(str(path), device="cpu")
+    assert_same_compiled(tscene, tstate, jscene, jstate)
+    assert [k for k, _ in tscene.kind_groups] == [tsc.K_PLANE_GENERIC]
+    for k in ("geom_faces", "geom_nfaces", "geom_verts", "geom_nverts"):
+        np.testing.assert_array_equal(tscene.host[k], np.asarray(getattr(jscene, k)), err_msg=k)
+    np.testing.assert_allclose(t2n(tscene.mass)[:3], [2.0 * 3.0, 0.5, 1.2])
+    verts, nv = tscene.host["geom_verts"], tscene.host["geom_nverts"]
+    # centred: the L's COM at its origin; not centred: the cube's 0.1 m offset kept
+    from moby_tpu_torch.geometry import trimesh as ttm
+
+    com = ttm.mesh_mass_properties(verts[0, :nv[0]], tscene.host["geom_faces"][0, :24])[1]
+    np.testing.assert_allclose(com, 0.0, atol=1e-12)
+    np.testing.assert_allclose(verts[1, :8].mean(axis=0), [0.1, 0.0, 0.0], atol=1e-12)
     cscene, cstate = torch_scene_state(jscene, jstate)
     assert_same_compiled(cscene, cstate, jscene, jstate)
 

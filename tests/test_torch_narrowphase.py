@@ -18,8 +18,8 @@ from moby_tpu_torch.sim import kinematics as tkin
 from moby_tpu_torch.sim import stepper as tstep
 from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_helpers import (
-    build_box_on_box, build_box_on_plane, build_stack, jax_fields, t2n,
-    torch_scene_state,
+    build_box_on_box, build_box_on_plane, build_stack, jax_fields, plane_quat,
+    t2n, torch_scene_state,
 )
 from moby_tpu_torch.core import scene as tsc
 
@@ -95,6 +95,84 @@ def test_topk_by_depth_matches_jax():
         jnp.asarray(depth), jnp.asarray(valid))
     it = tnph._topk_by_depth(torch.tensor(depth), torch.tensor(valid), 4)
     np.testing.assert_array_equal(t2n(it), np.asarray(ij))
+
+
+# a NaN with its sign bit set, the x86 default NaN (what inf - inf gives)
+_NEG_NAN = np.frombuffer(np.uint64(0xFFF8000000000000).tobytes(), np.float64)[0]
+
+
+def test_topk_slots_break_ties_as_lax_top_k():
+    """`_topk_slots` against the JAX package's (`lax.top_k` of -sdist): equal
+    values lower index first, padded inf slots in index order, a -0.0 before
+    a 0.0, a NaN with its sign bit set first and one without it last (IEEE
+    total order), in float64 and float32. `torch.topk` left ties in no fixed
+    order: the first row came out [1 0 3 2 4 5 6 7 30 29 ...]."""
+    rows = np.full((5, 40), np.inf)
+    rows[0, :8] = [0, 0, 0, 0, 1, 1, 1, 1]
+    rows[1, :6] = [0.0, -0.0, 0.0, -0.0, 1.0, -0.0]
+    rows[2, :6] = [1.0, np.nan, 0.5, np.inf, np.nan, -1.0]
+    rows[3, :6] = [1.0, _NEG_NAN, 0.5, np.inf, _NEG_NAN, -1.0]
+    rows[4] = np.round(np.random.default_rng(4).normal(size=40), 1)
+    for dt, jdt in ((torch.float64, jnp.float64), (torch.float32, jnp.float32)):
+        for k in (4, 16):
+            ij, vj = jax.jit(lambda r: jnph._topk_slots(r, k))(jnp.asarray(rows, jdt))
+            it, vt = tnph._topk_slots(torch.tensor(rows, dtype=dt), k)
+            np.testing.assert_array_equal(t2n(it), np.asarray(ij))
+            assert np.array_equal(t2n(vt), np.asarray(vj), equal_nan=True)
+            assert np.array_equal(np.signbit(t2n(vt)), np.signbit(np.asarray(vj)))
+    assert t2n(it)[0].tolist() == list(range(16))
+
+
+def _dodecahedron(r):
+    phi = (1.0 + 5.0 ** 0.5) / 2.0
+    v = [(sx, sy, sz) for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+    for a in (-1, 1):
+        for b in (-1, 1):
+            v += [(0, a / phi, b * phi), (a / phi, b * phi, 0), (a * phi, 0, b / phi)]
+    return np.array(v, float) * r / 3.0 ** 0.5
+
+
+def _flat_box_and_polyhedron(sc):
+    """A box resting flat on the plane (its four bottom vertices and its four
+    top ones at tied depths) and, apart from it, a 20-vertex POLYHEDRON: its
+    vertices raise vmax past VSLOT_CAP, so the box's plane slots are the 16
+    deepest of 20, padded inf included (the top-k path of kind 3)."""
+    b = sc.SceneBuilder()
+    b.set_gravity([0, 0, -9.81])
+    b.add_body("box", mass=2.0, inertia=sc.box_inertia(2.0, 0.5, 0.4, 0.3),
+               pos=np.array([0.0, 0.0, 0.3]))
+    b.add_geom("box", sc.BOX, [0.5, 0.4, 0.3])
+    b.add_body("dodeca", mass=1.0, inertia=np.eye(3) * 0.1, pos=np.array([4.0, 0.0, 1.0]))
+    b.add_geom("dodeca", sc.POLYHEDRON, [0.0], verts=_dodecahedron(0.5))
+    b.add_body("ground", enabled=False)
+    b.add_geom("ground", sc.PLANE, [0.0], quat=plane_quat())
+    b.disabled_pairs.add(("box", "dodeca"))
+    return b
+
+
+def test_tied_plane_slots_match_jax_slot_for_slot():
+    """The flat box beside a 20-vertex polyhedron: every contact slot equal
+    to the JAX package's, in order (on the parent the box's slots 2 and 3
+    held JAX's 3 and 2). Member 0 as built, the others moved along the
+    plane and turned about its normal, which keeps the ties."""
+    jscene, jstate = _flat_box_and_polyhedron(jsc).compile()
+    tscene, _ = torch_scene_state(jscene, jstate)
+    assert jscene.vmax == 20 and {k for k, _ in tscene.kind_groups} == {3}
+    rng = np.random.default_rng(5)
+    pos = np.repeat(np.asarray(jstate.pos)[None], 4, axis=0)
+    quat = np.repeat(np.asarray(jstate.quat)[None], 4, axis=0)
+    pos[1:, 0, :2] += rng.uniform(-1.0, 1.0, size=(3, 2))
+    ang = rng.uniform(0.0, np.pi, size=3)
+    quat[1:, 0] = np.stack([np.zeros(3), np.zeros(3), np.sin(ang / 2), np.cos(ang / 2)], -1)
+    fn = jax.jit(jax.vmap(lambda p, q: jnph.narrow_phase(jscene, p, q, 1e-6)))
+    pdj, cj = fn(jnp.asarray(pos), jnp.asarray(quat))
+    pdt, ct = tnph.narrow_phase(tscene, torch.tensor(pos), torch.tensor(quat), 1e-6)
+    np.testing.assert_array_equal(t2n(ct.active), np.asarray(cj.active))
+    assert t2n(ct.active)[:, :16].sum(axis=1).tolist() == [4, 4, 4, 4]
+    for f in ("point", "normal", "depth"):
+        np.testing.assert_allclose(t2n(getattr(ct, f)), np.asarray(getattr(cj, f)),
+                                   atol=ATOL, rtol=0, err_msg=f)
+    np.testing.assert_allclose(t2n(pdt.dist), np.asarray(pdj.dist), atol=ATOL, rtol=0)
 
 
 def test_box_sphere_inside_and_outside():

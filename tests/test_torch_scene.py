@@ -21,8 +21,8 @@ from test_torch_helpers import (
     assert_same_compiled, assert_same_fields, assert_same_hulls, build_ballpush,
     build_box_on_box, build_box_on_plane, build_compliant_ball, build_convex,
     build_curved, build_gear_pendulum, build_octa_on_box, build_planar_box,
-    build_sphere_chain, build_stack, jax_fields, pendulum_model,
-    torch_scene_state,
+    build_mesh_kinds, build_sphere_chain, build_stack, jax_fields,
+    pendulum_model, torch_scene_state,
 )
 
 SCENES = {
@@ -117,6 +117,32 @@ def test_curved_and_convex_tables():
     np.testing.assert_allclose(np.abs(n), 1 / np.sqrt(3.0), atol=1e-12)
 
 
+def test_trimesh_tables_match_jax():
+    """A scene of every mesh kind (3, 11, 12 and 13, mesh-polyhedron in both
+    orders) compiles to the JAX package's arrays, statics and kind groups:
+    the face table (`geom_faces`, `geom_nfaces`: a mesh's own triangles, a
+    polyhedron's hull triangles in its own vertex order), `geom_nverts`,
+    `geom_rmax`, `slot_rmax`, and the slot counts (4, min(vmax, 16) + 8,
+    8); a mesh without faces or without vertices is refused as there."""
+    jscene, jstate = build_mesh_kinds(jsc).compile()
+    tscene, tstate = build_mesh_kinds(tsc).compile(device="cpu")
+    assert_same_compiled(tscene, tstate, jscene, jstate)
+    for k in ("geom_faces", "geom_nfaces", "geom_nverts", "geom_rmax", "slot_rmax"):
+        np.testing.assert_array_equal(tscene.host[k], np.asarray(getattr(jscene, k)), err_msg=k)
+    assert {k: g["nslots"] for k, g in tscene.kind_groups.items()} == {
+        (3, 16): 16, (11, 4): 4, (12, 24): 24, (13, 8): 8}
+    assert int(tscene.host["geom_nfaces"].max()) == 80      # the icosphere
+    carried, _ = torch_scene_state(jscene, jstate)
+    np.testing.assert_array_equal(carried.host["geom_faces"], tscene.host["geom_faces"])
+    for sc_ in (jsc, tsc):
+        b = sc_.SceneBuilder()
+        b.add_body("m", mass=1.0)
+        with pytest.raises(ValueError, match="TRIMESH geometry needs verts and faces"):
+            b.add_geom("m", sc_.TRIMESH, [0.0], verts=np.eye(3))
+        with pytest.raises(ValueError, match="TRIMESH geometry needs verts and faces"):
+            b.add_geom("m", sc_.TRIMESH, [0.0], faces=np.array([[0, 1, 2]]))
+
+
 def _unported_features():
     def articulated(b):
         # articulated bodies run; a link's cylinder meets the stack's
@@ -133,9 +159,16 @@ def _unported_features():
     def heightmap(b):
         b.add_geom("sph1", tsc.HEIGHTMAP, [1.0, 1.0], heights=np.zeros((2, 2)))
 
-    def trimesh(b):
-        b.add_geom("sph1", tsc.TRIMESH, [0.0], verts=np.zeros((3, 3)),
+    def trimesh_cylinder(b):
+        # a mesh against a curved solid: the support kind 400 + CYLINDER
+        b.add_body("mesh", mass=1.0, pos=np.array([5.0, 0.0, 1.0]))
+        b.add_geom("mesh", tsc.TRIMESH, [0.0], verts=np.eye(3),
                    faces=np.array([[0, 1, 2]]))
+        b.add_body("can", mass=1.0, pos=np.array([5.0, 0.0, 3.0]))
+        b.add_geom("can", tsc.CYLINDER, [0.5, 1.0])
+        for n in ("sph1", "sph2", "sph3", "ground"):
+            for m in ("mesh", "can"):
+                b.disabled_pairs.add(tuple(sorted((n, m))))
 
     def cylinder(b):
         b.add_geom("sph1", tsc.CYLINDER, [0.5, 1.0])
@@ -146,14 +179,16 @@ def _unported_features():
     def polyhedron(b):
         b.add_geom("sph1", tsc.POLYHEDRON, [0.0], verts=np.eye(3) - 0.25)
 
-    def trimesh_on_plane(b):
-        # plane against a mesh is kind 3 in the JAX package; the mesh
-        # geometry is not ported, so the pair is refused
+    def trimesh_heightmap(b):
+        # a mesh against a heightmap: kind 8
         b.add_body("mesh", mass=1.0, pos=np.array([5.0, 0.0, 1.0]))
         b.add_geom("mesh", tsc.TRIMESH, [0.0], verts=np.eye(3),
                    faces=np.array([[0, 1, 2]]))
-        for n in ("sph1", "sph2", "sph3"):
-            b.disabled_pairs.add(tuple(sorted((n, "mesh"))))
+        b.add_body("terrain", enabled=False)
+        b.add_geom("terrain", tsc.HEIGHTMAP, [1.0, 1.0], heights=np.zeros((2, 2)))
+        for n in ("sph1", "sph2", "sph3", "ground"):
+            for m in ("mesh", "terrain"):
+                b.disabled_pairs.add(tuple(sorted((n, m))))
 
     def heightmap_alone(b):
         b.add_body("terrain", enabled=False)
@@ -162,8 +197,8 @@ def _unported_features():
             b.disabled_pairs.add(tuple(sorted((n, "terrain"))))
 
     return {f.__name__: f for f in (
-        articulated, pool, plugin, heightmap, trimesh, cylinder, torus,
-        polyhedron, trimesh_on_plane, heightmap_alone)}
+        articulated, pool, plugin, heightmap, trimesh_cylinder, cylinder, torus,
+        polyhedron, trimesh_heightmap, heightmap_alone)}
 
 
 # what each refusal names: the pair (with its kind) where a pair reaches a
@@ -173,11 +208,11 @@ _REFUSAL_NAMES = {
     "pool": "pair pooling",
     "plugin": "plugin contact kernels",
     "heightmap": r"kind 7 \(sphere-heightmap\) of the pair SPHERE vs HEIGHTMAP",
-    "trimesh": r"kind 11 \(sphere-trimesh\) of the pair SPHERE vs TRIMESH",
+    "trimesh_cylinder": r"kind 403 \(trimesh-CYLINDER support pair\) of the pair TRIMESH vs CYLINDER",
     "cylinder": r"kind 103 \(SPHERE-CYLINDER support pair\) of the pair SPHERE vs CYLINDER",
     "torus": r"kind 105 \(SPHERE-TORUS support pair\) of the pair SPHERE vs TORUS",
     "polyhedron": r"kind 107 \(SPHERE-POLYHEDRON support pair\) of the pair SPHERE vs POLYHEDRON",
-    "trimesh_on_plane": r"kind 3 \(plane-vertex solid\) of the pair PLANE vs TRIMESH",
+    "trimesh_heightmap": r"kind 8 \(vertex solid-heightmap\) of the pair TRIMESH vs HEIGHTMAP",
     "heightmap_alone": r"HEIGHTMAP geometry \(body 'terrain'\)",
 }
 
